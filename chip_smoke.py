@@ -3,19 +3,27 @@
 
     python3 chip_smoke.py [--synth-shape 11520x23040] [--out chip_smoke_out]
 
-Drives the port's headless main path once, as a user would: 1920x1080,
-shadow accuracy 10, 32 accumulation samples, indirect light, eclipse
-shading and earthshine on, on a synthetic LOLA-sized map (int16 heights,
-uint8 albedo; ``--synth-shape 23040x46080`` is the full benchmark size).
+Drives the port's two main paths once each, as a user would: 1920x1080,
+shadow accuracy 10, indirect light, eclipse shading and earthshine on, on
+a synthetic LOLA-sized map (int16 heights, uint8 albedo;
+``--synth-shape 23040x46080`` is the full benchmark size): the march-kernel
+path (``backend="pallas"``, a 32-sample burst) and the windowed "blocked"
+path (what ``backend="auto"`` resolves to, 8 samples one at a time).
 Phases, each fatal on failure:
 
 1. the card (nvidia-smi name and power limit, torch device name);
-2. build the four CUDA kernels from csrc/ (parallel nvcc) and report it;
-3. the main path: build_scene -> update_view -> render(32), with every
-   kernel launch counter set to 0 just before and read just after; every
-   kernel must have launched, the march 32 times, and the frame must be
-   finite; then a warm re-burst (same pose) for the per-sample time;
-4. every kernel launch the main path made is replayed on the same inputs:
+2. build the CUDA kernels from csrc/ (parallel nvcc) and report it;
+3. the march path: build_scene -> update_view -> render(32), with every
+   kernel launch counter set to 0 just before and read just after; each
+   of its kernels (K1-K4) must have launched, the march 32 times, and the
+   frame must be finite; then a warm re-burst (same pose) for the
+   per-sample time.
+   The blocked path, on the same scene and maps (switched with
+   ``scene.backend``, pose caches dropped with ``set_camera``): counters
+   set to 0, render(8), counters read; K5 must have launched six times for
+   the pose (heights, three albedo planes, shadow, bounce), the frame must
+   be finite and agree with the march path's frame;
+4. every kernel launch the two paths made is replayed on the same inputs:
    the kernel against its plain PyTorch version (with each kernel's
    tolerance), then timed: the kernel from torch.profiler's device events
    of its own launches (no host time), the plain version and, where one
@@ -24,7 +32,10 @@ Phases, each fatal on failure:
    the bound is computed from these inputs (bytes at 3.35 TB/s, operations
    at 67 TFLOP/s float32, H100 SXM data sheet);
 5. a small scene rendered through the kernels must agree with the same
-   scene rendered by the plain versions on the CPU.
+   scene rendered by the plain versions on the CPU, for the march, the
+   blocked and the gather reference backends; and a shadow scan whose
+   resample group does not divide its block count (K5's other caller)
+   must give the heights the CPU gives.
 
 The second-to-last line of standard output is the card's name and power
 limit, and the one before it the ``kernels`` JSON; the last line is the
@@ -43,7 +54,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
-SAMPLES = 32                   # accumulation samples of the main path
+SAMPLES = 32                   # accumulation samples of the march path
+BLOCKED_SAMPLES = 8            # one-sample frames of the blocked path
 
 # where each kernel lives, its __global__ function, and which TPU kernel
 # it replaces
@@ -52,6 +64,10 @@ KERNELS = {
         source="moonrtx_tpu_torch/csrc/extract.cu",
         kernel="extract_group_kernel",
         replaces="moonrtx_tpu/ops/extract.py:372"),
+    "extract_level_windows": dict(
+        source="moonrtx_tpu_torch/csrc/extract.cu",
+        kernel="extract_level_kernel",
+        replaces="moonrtx_tpu/ops/extract.py:239"),
     "march_shade": dict(
         source="moonrtx_tpu_torch/csrc/march_shade.cu",
         kernel="march_kernel",
@@ -65,6 +81,13 @@ KERNELS = {
         kernel="resample_kernel",
         replaces="moonrtx_tpu/ops/extract.py:516"),
 }
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "pallas": ("extract_group_windows", "march_shade", "shadow_factor",
+               "resample_group_windows"),
+    "blocked": ("extract_level_windows",),
+}
+K5_LAUNCHES_PER_POSE = 6   # heights, three albedo planes, shadow, bounce
 
 
 def fail(msg: str) -> None:
@@ -160,6 +183,11 @@ def bound_of(name: str, call: dict, out) -> tuple[float, str]:
                  for levels in call["map_levels"])
         by += nbytes(call["lvl_idx"], call["r0"], call["c0"], out)
         ops = 2 * out.numel()                       # decode multiply + add
+    elif name == "extract_level_windows":
+        by = touched_bytes(call["levels"], call["lvl_idx"], call["r0"],
+                           call["c0"], call["wh"], call["ww"])
+        by += nbytes(call["lvl_idx"], call["r0"], call["c0"], out)
+        ops = 2 * out.numel()                       # decode multiply + add
     elif name == "resample_group_windows":
         by = touched_bytes(call["levels"], call["lvl_idx"], call["r0"],
                            call["c0"], call["wh"], call["ww"])
@@ -195,12 +223,22 @@ def bound_of(name: str, call: dict, out) -> tuple[float, str]:
 def library_call(name: str, call: dict):
     """One PyTorch call computing the kernel's function on the same
     inputs, or None. K4: F.grid_sample over the decoded windows (its
-    bilinear half; the windows are cut outside the timed call)."""
+    bilinear half; the windows are cut outside the timed call). K5, for a
+    launch with a single level: one advanced-indexing gather of the raw
+    windows (the decode is left out); a launch that picks among several
+    levels has no single call."""
     import torch
     import torch.nn.functional as F
 
     from moonrtx_tpu_torch.ops import extract
 
+    if name == "extract_level_windows" and len(call["levels"]) == 1:
+        lvl = call["levels"][0]
+        rows = (call["r0"].long()[:, None]
+                + torch.arange(call["wh"], device=lvl.device))[:, :, None]
+        cols = (call["c0"].long()[:, None]
+                + torch.arange(call["ww"], device=lvl.device))[:, None, :]
+        return lambda: lvl[rows, cols]
     if name != "resample_group_windows":
         return None
     win = extract.decode_affine(
@@ -219,7 +257,7 @@ def compare(name: str, call: dict, got, ref) -> list:
     """[(output, max abs error, tolerance), ...] of a kernel against its
     plain version, the main output first; fails if an error exceeds its
     tolerance."""
-    if name == "extract_group_windows":
+    if name in ("extract_group_windows", "extract_level_windows"):
         err = float((got.float() - ref.float()).abs().max())
         tol = 0.0                                   # bit-exact
     elif name == "resample_group_windows":
@@ -330,9 +368,9 @@ def main(argv=None) -> int:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"# cold first frame: {cold_s:.3f} s; launches {counts}; "
           f"peak device memory {peak_gib:.2f} GiB", flush=True)
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in PATH_KERNELS["pallas"]:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the march path")
     if counts["march_shade"] != SAMPLES:
         fail(f"march_shade launched {counts['march_shade']} times, "
              f"expected {SAMPLES}")
@@ -363,8 +401,81 @@ def main(argv=None) -> int:
     print(f"# warm re-burst: {warm_ms:.3f} ms per accumulation sample",
           flush=True)
 
+    # ---- 3b. the blocked path, same scene and maps -------------------------
+    # the backend switch tools/make_goldens.py makes; set_camera drops the
+    # pose caches, the sun's shadow and bounce maps stay
+    scene.backend = "blocked"
+    scene.set_camera(scene.camera)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with kernels.recording() as calls_blocked:
+        t0 = time.time()
+        scene.render(1)                      # pose caches + sample 0
+        torch.cuda.synchronize()
+        first_ms = (time.time() - t0) * 1e3
+        t0 = time.time()
+        img_b = scene.render(BLOCKED_SAMPLES)
+        torch.cuda.synchronize()
+        sample_ms = (time.time() - t0) * 1e3 / (BLOCKED_SAMPLES - 1)
+    counts_b = kernels.launch_counts()
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    print(f"# blocked path: pose caches {first_ms - sample_ms:.2f} ms "
+          f"(first frame {first_ms:.2f} ms less one sample), "
+          f"{sample_ms:.3f} ms per accumulation sample over "
+          f"{BLOCKED_SAMPLES - 1} samples; launches {counts_b}; peak device "
+          f"memory {peak_b:.2f} GiB", flush=True)
+    if counts_b["extract_level_windows"] != K5_LAUNCHES_PER_POSE:
+        fail(f"extract_level_windows launched "
+             f"{counts_b['extract_level_windows']} times on the blocked "
+             f"path, expected {K5_LAUNCHES_PER_POSE}")
+    if scene._accum_n != BLOCKED_SAMPLES:
+        fail(f"the blocked path accumulated {scene._accum_n} samples")
+    if not bool(torch.isfinite(scene._accum).all()):
+        fail("the blocked frame has non-finite values")
+    if img_b.shape != img.shape or img_b.dtype != np.uint8:
+        fail(f"blocked frame shape {img_b.shape} {img_b.dtype}")
+    headless.save_image(img_b, os.path.join(out_dir, "blocked_1080p.png"))
+    # different backends, same scene: the march path marches 12 coarse
+    # steps on bf16 windows with bf16 shadow windows, the blocked path 24
+    # on f32 windows, and the sample counts differ; they part on limb and
+    # shadow-edge pixels (tests/test_blocked.py holds the reference's own
+    # two backends to p98 <= 2 on interior pixels, < 2% beyond 8 levels)
+    d = np.abs(img_b.astype(int) - img.astype(int)).max(axis=-1)
+    hit_b = (scene._hitbuf[..., 3] > 0).cpu().numpy()[:1080, :1920]
+    stats = dict(mean=float(d.mean()), p99=float(np.percentile(d, 99)),
+                 over8=float((d > 8).mean()),
+                 hits=float((hit_b == hit).mean()))
+    print(f"# blocked frame against the march frame: mean |d| "
+          f"{stats['mean']:.4f}, p99 |d| {stats['p99']:.1f}, share beyond 8 "
+          f"levels {stats['over8']:.5f}, hit agreement {stats['hits']:.5f} "
+          f"(tolerance: mean < 0.5, p99 <= 3, share < 0.005, hits >= 0.999)",
+          flush=True)
+    if not (stats["mean"] < 0.5 and stats["p99"] <= 3
+            and stats["over8"] < 0.005 and stats["hits"] >= 0.999):
+        fail("the blocked frame disagrees with the march frame")
+    counts["extract_level_windows"] = counts_b["extract_level_windows"]
+    calls = calls + calls_blocked
+
+    # a single-level launch beside one advanced-indexing gather: the height
+    # launch cut down to the blocks that read level 0 (the main path's own
+    # launches pick among three levels, which no single call does)
+    hcall = calls_blocked[0][1]
+    sel = hcall["lvl_idx"] == 0
+    one = dict(hcall, levels=hcall["levels"][:1],
+               lvl_idx=hcall["lvl_idx"][sel].contiguous(),
+               r0=hcall["r0"][sel].contiguous(),
+               c0=hcall["c0"][sel].contiguous())
+    k5_one = device_ms(lambda: extract.extract_level_windows(**one),
+                       KERNELS["extract_level_windows"]["kernel"], 30)
+    lib_one = cuda_ms(library_call("extract_level_windows", one), 20)
+    print(f"# extract_level_windows on the {int(sel.sum())} level-0 height "
+          f"blocks alone: kernel {k5_one:.4f} ms, one advanced-indexing "
+          f"gather (no decode) {lib_one:.4f} ms", flush=True)
+
     # ---- 4. each kernel against its plain version, and its times -------
     plain = {"extract_group_windows": extract.extract_group_windows_plain,
+             "extract_level_windows": extract.extract_level_windows_plain,
              "resample_group_windows": extract.resample_group_windows_plain,
              "shadow_factor": shadow_prefix.shadow_factor_plain,
              "march_shade": march_shade.march_shade_plain}
@@ -402,9 +513,17 @@ def main(argv=None) -> int:
                 if err * tol0 >= err0 * tol:
                     errs[what] = (err, tol)
             b_ms, b_by = bound_of(name, call, got)
-            tot["ms"] += weight * device_ms(
-                lambda: wrapper[name](**call), KERNELS[name]["kernel"], 30)
-            tot["plain_ms"] += weight * cuda_ms(lambda: plain[name](**call), 2)
+            k_ms = device_ms(lambda: wrapper[name](**call),
+                             KERNELS[name]["kernel"], 30)
+            p_ms = cuda_ms(lambda: plain[name](**call), 2)
+            if name == "extract_level_windows":
+                lv = call["levels"][0]
+                print(f"#   extract_level_windows launch: {lv.dtype} levels, "
+                      f"element stride {lv.stride(1)}, out "
+                      f"{tuple(got.shape)}: {k_ms:.4f} ms, bound {b_ms:.4f} "
+                      f"ms, plain {p_ms:.3f} ms", flush=True)
+            tot["ms"] += weight * k_ms
+            tot["plain_ms"] += weight * p_ms
             tot["bound_ms"] += weight * b_ms
             bound_ops += weight * (b_ms if b_by == "operations" else 0.0)
             lib = library_call(name, call)
@@ -435,29 +554,60 @@ def main(argv=None) -> int:
     # ---- 5. a small input: kernels against the plain path on the CPU ----
     from moonrtx_tpu_torch.data.synth import synthesize_moon
     from moonrtx_tpu_torch.engine.scene import MoonScene
+    from moonrtx_tpu_torch.ops import shadow_scan
 
     elev, albedo = synthesize_moon(360, 720, seed=5, n_craters=150)
     rs = float(elev.max())
-    small = RenderConfig(
-        observer=Observer(50.06, 19.94, 219),
-        dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
-        width=256, height=144, shadow_accuracy=4, backend="pallas",
-        quantize="i16").validate()
-    frames = {}
+    elev = (elev / rs).astype(np.float32)
+    # the gather reference renders f32 scenes only (a quantized scene
+    # resolves "reference" to "blocked")
+    for backend, quantize in (("pallas", "i16"), ("blocked", "i16"),
+                              ("reference", "off")):
+        small = RenderConfig(
+            observer=Observer(50.06, 19.94, 219),
+            dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
+            width=256, height=144, shadow_accuracy=4, backend=backend,
+            quantize=quantize).validate()
+        frames = {}
+        for dev in ("cuda", "cpu"):
+            s = MoonScene(small, elev, rs, albedo, None, device=dev)
+            if s.backend != backend:
+                fail(f"backend {backend} resolved to {s.backend}")
+            s.update_view()
+            frames[dev] = (s.render(4).astype(int),
+                           s._hitbuf[..., 3].cpu().numpy() > 0)
+        d = np.abs(frames["cuda"][0] - frames["cpu"][0]).max(axis=-1)
+        hit_agree = float((frames["cuda"][1] == frames["cpu"][1]).mean())
+        print(f"# small scene, {backend}: card vs plain on the CPU: p99 |d| "
+              f"{np.percentile(d, 99):.1f}, mean |d| {d.mean():.4f}, hit "
+              f"agreement {hit_agree:.5f}", flush=True)
+        if not (np.percentile(d, 99) <= 2 and d.mean() < 0.2
+                and hit_agree >= 0.999 and frames["cpu"][1].mean() > 0.2):
+            fail(f"small scene, {backend}: the card disagrees with the "
+                 "plain path on the CPU")
+
+    # K5's other caller: a scan whose resample group does not divide its
+    # block count cuts every level's windows with K5
+    tex = torch.from_numpy(np.ascontiguousarray(s.mips[0].cpu().numpy()))
+    sh, sw_ = s.mip_shapes[0]
+    sun = torch.tensor([0.6, -0.7, 0.3])
+    sun = sun / torch.linalg.norm(sun)
+    heights = {}
+    kernels.reset_launch_counts()
     for dev in ("cuda", "cpu"):
-        s = MoonScene(small, (elev / rs).astype(np.float32), rs, albedo,
-                      None, device=dev)
-        s.update_view()
-        frames[dev] = (s.render(4).astype(int),
-                       s._hitbuf[..., 3].cpu().numpy() > 0)
-    d = np.abs(frames["cuda"][0] - frames["cpu"][0]).max(axis=-1)
-    hit_agree = float((frames["cuda"][1] == frames["cpu"][1]).mean())
-    print(f"# small scene, kernels vs plain on the CPU: p99 |d| "
-          f"{np.percentile(d, 99):.1f}, mean |d| {d.mean():.4f}, hit "
-          f"agreement {hit_agree:.5f}", flush=True)
-    if not (np.percentile(d, 99) <= 2 and d.mean() < 0.2
-            and hit_agree >= 0.999 and frames["cpu"][1].mean() > 0.2):
-        fail("small scene: the kernel path disagrees with the plain path")
+        basis = torch.stack(shadow_scan.sun_frame_basis(sun.to(dev)))
+        _, heights[dev] = shadow_scan.scan_wedge(
+            tex.to(dev), basis, 0.0046, sh, sw_, 64, 64, 512, 0, 512,
+            blocked_resample=True, return_heights=True, resample_group=7)
+    torch.cuda.synchronize()
+    n_k5 = kernels.launch_counts()["extract_level_windows"]
+    spread = float(heights["cpu"].max() - heights["cpu"].min())
+    err = float((heights["cuda"].cpu() - heights["cpu"]).abs().max())
+    print(f"# ungrouped scan resample: {n_k5} K5 launches, heights on the "
+          f"card within {err:.3g} of the CPU's (tolerance {4e-3 * spread:.3g}"
+          f", 4e-3 of their spread: the bf16 row mix)", flush=True)
+    if not (1 <= n_k5 <= 3 and err <= 4e-3 * spread):
+        fail("the ungrouped scan resample disagrees with the CPU")
 
     print(json.dumps({"kernels": report}))
     print(card)

@@ -6,13 +6,16 @@ by slice. It imports torch and numpy, never jax and never any module of
 orientation, astro/, data/, app/codec, engine/light) are copies with their
 imports renamed.
 
-This slice carries the headless main path: ``app.headless.build_scene``
--> ``MoonScene.update_view`` -> ``MoonScene.render`` (shadow scan plus the
-one-bounce pyramid, the pose program, the accumulation burst) ->
-``display``. Its four hand-written Hopper kernels live in ``csrc/``, each
-beside its plain PyTorch version in ``ops/``:
+It carries the headless render path: ``app.headless.build_scene`` ->
+``MoonScene.update_view`` -> ``MoonScene.render`` (shadow scan plus the
+one-bounce pyramid, per-block windows, accumulation) -> ``display``,
+through the three backends of the reference: the windowed "blocked"
+backend (the default), the march-kernel "pallas" backend and the gather
+"reference" backend. Its five hand-written Hopper kernels live in
+``csrc/``, each beside its plain PyTorch version in ``ops/``:
 
 * ``ops.extract.extract_group_windows``   (csrc/extract.cu)
+* ``ops.extract.extract_level_windows``   (csrc/extract.cu)
 * ``ops.extract.resample_group_windows``  (csrc/resample.cu)
 * ``ops.shadow_prefix.shadow_factor``     (csrc/shadow_prefix.cu)
 * ``ops.march_shade.march_shade``         (csrc/march_shade.cu)

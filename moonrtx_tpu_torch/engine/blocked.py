@@ -1,20 +1,27 @@
-"""Blocked kernel pipeline: block layout, per-block windows, packing and
-the accumulation burst (torch).
+"""Blocked render pipeline: block layout, per-block windows, the windowed
+"blocked" backend, and packing plus the accumulation burst of the march
+kernel (torch).
 
-Port of the fused-kernel half of moonrtx_tpu/engine/blocked.py. The image
-is tiled into 8x16-pixel blocks of 128 rays; each block samples the
-heightfield, albedo and shadow|bounce maps through small private windows,
-GROUP=8 horizontally adjacent blocks (an 8x128-pixel strip) make one
-strip of the march kernel. The layout is the reference's, so every
-intermediate compares tensor for tensor with it.
+Port of moonrtx_tpu/engine/blocked.py. The image is tiled into
+8x16-pixel blocks of 128 rays; each block samples the heightfield, albedo
+and shadow|bounce maps through small private windows. The layout is the
+reference's, so every intermediate compares tensor for tensor with it.
+Two backends share the windows:
+
+* "blocked": march, shadow lookup and shading in plain torch ops on f32
+  windows, one accumulation sample per call (render_frame_blocked). Its
+  windows are cut one per block by K5 (ops.extract.extract_level_windows):
+  heights, the three albedo planes, shadow and bounce.
+* "pallas": GROUP=8 horizontally adjacent blocks (an 8x128-pixel strip)
+  make one strip of the march kernel (K2), fed from windows cut by K1
+  straight into its packed layout, all samples in one burst.
 
 Cache structure (what changes when):
 * WindowOrigins + WindowCache — camera pose, Moon orientation, mip level.
 * ShadowWindows — additionally the sun direction.
-* Per sample: jittered rays and the march/shade kernel.
+* Per sample: jittered rays, then march and shading.
 
-The XLA-blocked backend (march_blocks/shade_blocks) and the time-step
-programs come with later slices.
+The time-step programs come with a later slice.
 """
 
 from __future__ import annotations
@@ -26,18 +33,24 @@ import torch
 from moonrtx_tpu_torch import constants as C
 from moonrtx_tpu_torch.engine.camera import CameraBasis, ray_directions
 from moonrtx_tpu_torch.engine.geometry import (
+    latlon_to_unit,
     mat3_apply,
     mat3t_apply,
     normalize,
     ray_sphere,
     unit_to_latlon,
 )
-from moonrtx_tpu_torch.engine.render import FrameParams, sun_disk_hit
+from moonrtx_tpu_torch.engine.render import (
+    FrameParams,
+    RenderOutput,
+    shade_lambert,
+    sun_disk_hit,
+)
 from moonrtx_tpu_torch.ops import extract as extract_ops
 from moonrtx_tpu_torch.ops import march_shade as mk
 from moonrtx_tpu_torch.ops import sampler
 from moonrtx_tpu_torch.ops import shadow_scan
-from moonrtx_tpu_torch.ops.sampler import latlon_to_rowcol
+from moonrtx_tpu_torch.ops.sampler import latlon_to_rowcol, window_bilinear
 
 # Block layout: 8x16 pixels = 128 rays per block, row-major; GROUP
 # horizontally adjacent blocks make one strip of the march kernel.
@@ -132,12 +145,20 @@ class WindowOrigins(NamedTuple):
 class WindowCache(NamedTuple):
     hwin: torch.Tensor      # (NBLK, WIN_H, WIN_W) mean-centered heights
     hmean: torch.Tensor     # (NBLK, 1) per-window mean height
-    awin: torch.Tensor      # (NS, GROUP*AWIN_H, 3*AWIN_W) channel-major
+    awin: torch.Tensor      # grouped (K1): (NS, GROUP*AWIN_H, 3*AWIN_W)
+                            # channel-major; ungrouped (K5):
+                            # (NBLK, AWIN_H, AWIN_W, 3)
+
+
+# Sentinel: the sun-side shadow state lives only inside PackedWindows
+# (produced by the pose program's burst) and no standalone ShadowWindows
+# exists for the current sun direction.
+FUSED_SHADOW_STATE = object()
 
 
 class ShadowWindows(NamedTuple):
-    swin: torch.Tensor      # (NBLK, SWIN_H, n_maps*SWIN_W) bf16 shadow
-                            # [| bounce] halves
+    swin: torch.Tensor      # (NBLK, SWIN_H, n_maps*SWIN_W) shadow
+                            # [| bounce] halves; bf16 grouped, f32 ungrouped
     sr0: torch.Tensor
     sc0: torch.Tensor
     sq: torch.Tensor        # per-block stride into the shadow grid (1/2/4)
@@ -285,17 +306,49 @@ def _clamped(levels, r0, c0, wh: int, ww: int, qi):
             torch.clamp(torch.minimum(c0, ws_[qi] - ww), min=0))
 
 
+def _pick_level_windows(levels, qexp, r0, c0, wh: int, ww: int,
+                        scale: float = 1.0, offset: float = 0.0):
+    """A window per block from levels[qexp[blk]] (q = 2^qexp), cut by K5;
+    origins are in the block's own stride-level coordinates. Levels may be
+    stored quantized (int16/uint8, value = raw*scale+offset); windows come
+    back decoded f32. 3-D maps go plane by plane, each plane read in place
+    through its strides, stacked on the last axis."""
+    qi = torch.clamp(qexp, 0, len(levels) - 1)
+    rk, ck = _clamped(levels, r0, c0, wh, ww, qi)
+    if levels[0].ndim == 3:
+        return torch.stack(
+            [extract_ops.extract_level_windows(
+                tuple(lvl[:, :, ch] for lvl in levels), qi, rk, ck, wh, ww,
+                scale=scale, offset=offset)
+             for ch in range(levels[0].shape[2])], dim=-1)
+    return extract_ops.extract_level_windows(
+        tuple(levels), qi, rk, ck, wh, ww, scale=scale, offset=offset)
+
+
 def extract_window_cache(mips, albedo_mips, org: WindowOrigins,
                          h_scale: float = 1.0, h_offset: float = 0.0,
-                         a_scale: float = 1.0) -> WindowCache:
-    """Per-block windows from the block's stride level (K1).
+                         a_scale: float = 1.0,
+                         grouped: bool = True) -> WindowCache:
+    """Per-block windows from the block's stride level.
 
     mips/albedo_mips: tuples of successively-coarser pyramid levels
     starting at the render level; a block with stride q = 2^k reads level
     index k. Quantized pyramids (int16 heights, uint8 albedo) decode
-    through h_scale/h_offset and a_scale. Albedo windows come back in the
-    march kernel's packed channel-blocked layout."""
+    through h_scale/h_offset and a_scale.
+
+    grouped (the march-kernel path): K1 cuts both, the albedo windows
+    straight into the march kernel's packed channel-blocked layout. Not
+    grouped (the blocked backend): K5 cuts one window per block, the
+    albedo plane by plane into (nblk, AWIN_H, AWIN_W, 3)."""
     qexp = torch.round(torch.log2(org.q)).to(torch.int32)
+    if not grouped:
+        hwin = _pick_level_windows(mips, qexp, org.r0, org.c0, WIN_H, WIN_W,
+                                   scale=h_scale, offset=h_offset)
+        awin = _pick_level_windows(albedo_mips, qexp, org.ar0, org.ac0,
+                                   AWIN_H, AWIN_W, scale=a_scale)
+        hmean = torch.mean(hwin, dim=(1, 2))[:, None]
+        return WindowCache(hwin=hwin - hmean[..., None], hmean=hmean,
+                           awin=awin)
     qi = torch.clamp(qexp, 0, len(mips) - 1)
     rk, ck = _clamped(mips, org.r0, org.c0, WIN_H, WIN_W, qi)
     hwin = extract_ops.extract_group_windows(
@@ -322,12 +375,17 @@ def _decimate(m):
 
 
 def build_shadow_windows(shadow_map, smap_params, geom: RayGeom,
-                         bounce_map=None, group: int = GROUP
-                         ) -> ShadowWindows:
-    """Per-block windows into the sun-frame shadow map (K1) in the march
-    kernel's bf16 shadow|bounce layout. Footprints from the chord
-    endpoints + midpoint; blocks spanning more than a window sample a 2x-
-    or 4x-decimated copy of the map."""
+                         bounce_map=None, group: int = GROUP,
+                         grouped: bool = True) -> ShadowWindows:
+    """Per-block windows into the sun-frame shadow map. Footprints from
+    the chord endpoints + midpoint; blocks spanning more than a window
+    sample a 2x- or 4x-decimated copy of the map. bounce_map (same grid)
+    shares the origins and stride; its windows sit in columns
+    [SWIN_W, 2*SWIN_W).
+
+    grouped (the march-kernel path): K1 cuts both maps into the march
+    kernel's bf16 shadow|bounce layout. Not grouped (the blocked
+    backend): K5 cuts f32 windows, SWIN_W columns without a bounce map."""
     n_phi = shadow_map.shape[1] - shadow_scan.PHI_PAD
     rcs = [shadow_scan.rowcol_of_points(smap_params, n_phi, p)
            for p in _chord_points(geom)]
@@ -355,6 +413,18 @@ def build_shadow_windows(shadow_map, smap_params, geom: RayGeom,
         shadow_map.shape[0] / sq, (n_phi + ext) / sq)
     sqexp = torch.round(torch.log2(sq)).to(torch.int32)
 
+    if not grouped:
+        half = _decimate(shadow_map)
+        swin = _pick_level_windows((shadow_map, half, _decimate(half)),
+                                   sqexp, sr0, sc0, SWIN_H, SWIN_W)
+        if bounce_map is not None:
+            bmap = _extend(bounce_map)
+            bhalf = _decimate(bmap)
+            bwin = _pick_level_windows((bmap, bhalf, _decimate(bhalf)),
+                                       sqexp, sr0, sc0, SWIN_H, SWIN_W)
+            swin = torch.cat([swin, bwin], dim=2)
+        return ShadowWindows(swin=swin, sr0=sr0, sc0=sc0, sq=sq)
+
     # grouped paired extraction straight to the bf16 shadow|bounce layout
     smap16 = shadow_map.to(torch.bfloat16)
     shalf = _decimate(smap16)
@@ -372,6 +442,178 @@ def build_shadow_windows(shadow_map, smap_params, geom: RayGeom,
     swin = packed.reshape(-1, SWIN_H, len(maps) * SWIN_W)
     return ShadowWindows(swin=swin, sr0=sr0, sc0=sc0, sq=sq)
 
+
+# ---- the blocked backend: march, shadow lookup and shading on windows ------
+
+def _local_coords(lat, lon, h: int, w: int, r0, c0, q):
+    """Window-local fractional coords in the block's stride level;
+    seam-aware via padded columns."""
+    row, col = latlon_to_rowcol(lat, lon, h, w)
+    qb = q[:, None]
+    row = (row + 0.5) / qb - 0.5
+    col = (col + 0.5) / qb - 0.5
+    col = torch.where(col < c0[:, None].to(col.dtype) - 0.5,
+                      col + w / qb, col)
+    return row - r0[:, None], col - c0[:, None]
+
+
+def _sample_height(cache: WindowCache, lat, lon, h, w, org):
+    wy, wx = _local_coords(lat, lon, h, w, org.r0, org.c0, org.q)
+    return window_bilinear(cache.hwin, wy, wx) + cache.hmean
+
+
+def march_blocks(cache: WindowCache, org: WindowOrigins, geom: RayGeom,
+                 h: int, w: int, jitter_t, n_coarse: int = 24,
+                 n_bisect: int = 8):
+    """Bracket+bisect against cached windows; jitter_t dithers the coarse
+    sample phase per accumulation frame. Returns (hit, t_hit, lat, lon,
+    p)."""
+    ob = geom.ob
+    db = geom.db
+    span = geom.t_end - geom.t_enter
+    jitter_t = torch.as_tensor(jitter_t, dtype=torch.float32,
+                               device=db.device)
+
+    def field(t):
+        p = ob + t[..., None] * db
+        lat, lon = unit_to_latlon(p)
+        hs = _sample_height(cache, lat, lon, h, w, org)
+        return torch.linalg.norm(p, dim=-1) - C.MOON_RADIUS * hs
+
+    found = torch.zeros(db.shape[:2], dtype=torch.bool, device=db.device)
+    t_lo, t_hi = geom.t_enter, geom.t_end
+    for k in range(n_coarse + 1):
+        frac = (k + jitter_t) / n_coarse
+        t_k = geom.t_enter + span * frac
+        newly = (~found) & (field(t_k) < 0.0) & geom.hit_outer
+        t_prev = geom.t_enter + span * torch.clamp(frac - 1.0 / n_coarse,
+                                                   min=0.0)
+        t_lo = torch.where(newly, t_prev, t_lo)
+        t_hi = torch.where(newly, t_k, t_hi)
+        found = found | newly
+
+    for _ in range(n_bisect):
+        t_mid = 0.5 * (t_lo + t_hi)
+        outside = field(t_mid) > 0.0
+        t_lo, t_hi = (torch.where(outside, t_mid, t_lo),
+                      torch.where(outside, t_hi, t_mid))
+    t_hit = 0.5 * (t_lo + t_hi)
+    p = ob + t_hit[..., None] * db
+    lat, lon = unit_to_latlon(p)
+    return found, t_hit, lat, lon, p
+
+
+def normal_step_texels(p, db, t_hit, pix_ang, q, h: int):
+    """Per-ray central-difference step in the block's stride-level texels:
+    half the arc one pixel spans on the surface, so the stencil width is
+    continuous across per-block stride (q) boundaries."""
+    p_unit = normalize(p)
+    cosv = torch.clamp(torch.abs(torch.sum(p_unit * db, dim=-1)), min=0.05)
+    arc = t_hit * pix_ang / (C.MOON_RADIUS * cosv)   # radians per pixel
+    ft = arc * (h / torch.pi)                        # level-0 lat texels
+    return torch.clamp(0.5 * ft / q, 0.5, 3.0)
+
+
+def shade_blocks(cache: WindowCache, org: WindowOrigins, h: int, w: int,
+                 ah: int, aw: int, lat, lon, p, fp: FrameParams, shadow,
+                 geom: Optional[RayGeom] = None, t_hit=None, pix_ang=None,
+                 bounce=None):
+    """Normals from height windows, albedo from its windows (either
+    WindowCache.awin layout), Lambert."""
+    hs = _sample_height(cache, lat, lon, h, w, org)
+    if pix_ang is not None and geom is not None and t_hit is not None:
+        step = normal_step_texels(p, geom.db, t_hit, pix_ang,
+                                  org.q[:, None], h)
+    else:
+        step = 0.5
+    dlat = (180.0 / h) * org.q[:, None] * step
+    coslat = torch.clamp(torch.cos(torch.deg2rad(lat)), min=0.05)
+    dlon = dlat / coslat
+
+    def spoint(la, lo):
+        hv = _sample_height(cache, la, lo, h, w, org)
+        return C.MOON_RADIUS * hv[..., None] * latlon_to_unit(la, lo)
+
+    p_c = C.MOON_RADIUS * hs[..., None] * latlon_to_unit(lat, lon)
+    n = torch.linalg.cross(spoint(lat, lon + dlon) - spoint(lat, lon - dlon),
+                           spoint(lat + dlat, lon) - spoint(lat - dlat, lon))
+    n = normalize(n)
+    n = torch.where(torch.sum(n * p_c, dim=-1, keepdim=True) < 0.0, -n, n)
+
+    awy, awx = _local_coords(lat, lon, ah, aw, org.ar0, org.ac0, org.q)
+    if cache.awin.ndim == 3:
+        # packed channel-blocked layout (ns, GROUP*AWIN_H, 3*AWIN_W)
+        aw3 = cache.awin.reshape(-1, AWIN_H, 3 * AWIN_W)
+        albedo = torch.stack(
+            [window_bilinear(aw3[:, :, m * AWIN_W:(m + 1) * AWIN_W],
+                             awy, awx) for m in range(3)], dim=-1)
+    else:
+        albedo = window_bilinear(cache.awin, awy, awx)
+    return shade_lambert(albedo, n, p, fp, shadow,
+                         sigma=org.sigma[:, None], bounce=bounce,
+                         view_db=None if geom is None else geom.db)
+
+
+def shadow_scan_total_rows(smap_params):
+    return smap_params.n_coarse + smap_params.n_fine
+
+
+def lookup_shadow_windows(sw: ShadowWindows, smap_params, n_phi: int, p):
+    """Sample (shadow, bounce) at body-frame points through the per-block
+    windows (bounce is zeros when disabled)."""
+    rows, cols = shadow_scan.rowcol_of_points(smap_params, n_phi, p)
+    qb = sw.sq[:, None]
+    rows = (rows + 0.5) / qb - 0.5
+    cols = (cols + 0.5) / qb - 0.5
+    cols = torch.where(cols < sw.sc0[:, None].to(cols.dtype) - 0.5,
+                       cols + n_phi / qb, cols)
+    # rows are stride coords: true row = (rows + 0.5) * qb - 0.5, so the
+    # night gate fires at every stride (rowcol_of_points pre-clamps to
+    # total - 1.001)
+    true_rows = (rows + 0.5) * qb - 0.5
+    theta_ok = true_rows < shadow_scan_total_rows(smap_params) - 1.001
+    wy = rows - sw.sr0[:, None]
+    wx = cols - sw.sc0[:, None]
+    swin = sw.swin.to(torch.float32)
+    val = window_bilinear(swin[:, :, :SWIN_W], wy, wx)
+    if swin.shape[2] > SWIN_W:
+        bval = torch.where(theta_ok,
+                           window_bilinear(swin[:, :, SWIN_W:], wy, wx), 0.0)
+    else:
+        bval = torch.zeros_like(val)
+    return torch.where(theta_ok, val, 0.0), bval
+
+
+def render_frame_blocked(cache: WindowCache, org: WindowOrigins,
+                         geom: RayGeom,
+                         shadow_windows: Optional[ShadowWindows],
+                         smap_params, background, basis: CameraBasis,
+                         fp: FrameParams, jitter_t, height: int, width: int,
+                         h: int, w: int, ah: int, aw: int, n_phi: int = 0,
+                         n_coarse: int = 24) -> RenderOutput:
+    """One accumulation sample from cached windows (the blocked backend's
+    per-frame path)."""
+    hit, t_hit, lat, lon, p = march_blocks(
+        cache, org, geom, h, w, jitter_t, n_coarse=n_coarse)
+
+    if shadow_windows is not None:
+        shadow, bounce = lookup_shadow_windows(shadow_windows, smap_params,
+                                               n_phi, p)
+    else:
+        shadow = torch.ones_like(t_hit)
+        bounce = None
+
+    pix_ang = 2.0 * basis.tan_half_fov / height
+    rgb_b = shade_blocks(cache, org, h, w, ah, aw, lat, lon, p, fp, shadow,
+                         geom=geom, t_hit=t_hit, pix_ang=pix_ang,
+                         bounce=bounce)
+    rgb, hitbuf = composite_blocks(rgb_b, hit, t_hit, p, height, width,
+                                   geom.dirs_scene, basis.eye, fp,
+                                   background=background)
+    return RenderOutput(rgb=rgb, hitbuf=hitbuf)
+
+
+# ---- the march-kernel path ---------------------------------------------------
 
 class PackedWindows(NamedTuple):
     """March-kernel-layout window tensors (cached per pose)."""
@@ -417,10 +659,24 @@ def _pack_sun_parts(cache: WindowCache, org: WindowOrigins,
 
 
 def pack_pose_windows(cache: WindowCache):
-    """(hwin_packed, awin_packed) — the pose-dependent kernel tensors."""
+    """(hwin_packed, awin_packed) — the pose-dependent kernel tensors,
+    from either WindowCache.awin layout."""
     nblk = cache.hwin.shape[0]
     ns = nblk // GROUP
-    return cache.hwin.reshape(ns, GROUP * WIN_H, WIN_W), cache.awin
+    hwin = cache.hwin.reshape(ns, GROUP * WIN_H, WIN_W)
+    if cache.awin.ndim == 3:
+        return hwin, cache.awin       # K1 emitted the packed layout
+    awin = torch.movedim(cache.awin, 3, 2).reshape(nblk, AWIN_H, 3 * AWIN_W)
+    return hwin, awin.reshape(ns, GROUP * AWIN_H, 3 * AWIN_W)
+
+
+def pack_windows(cache: WindowCache, org: WindowOrigins,
+                 shadow_windows: Optional[ShadowWindows]) -> PackedWindows:
+    """Repack the blocked backend's caches into the march kernel's layout
+    (a scene switched to the march path with caches already built)."""
+    hwin, awin = pack_pose_windows(cache)
+    swin, scal = _pack_sun_parts(cache, org, shadow_windows)
+    return PackedWindows(hwin=hwin, awin=awin, swin=swin, scal=scal)
 
 
 def _kernel_params(ob, fp: FrameParams, smap_params, use_shadow: bool,

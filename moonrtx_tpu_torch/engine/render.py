@@ -1,8 +1,14 @@
-"""Per-frame parameters, shading terms and the display transform (torch).
+"""The gather render pipeline, shading terms and the display transform
+(torch).
 
-Port of the parts of moonrtx_tpu/engine/render.py that the accumulation
-burst uses. The gather-reference renderer (``render_frame``,
-``intersect_heightfield``) comes with a later slice.
+Port of moonrtx_tpu/engine/render.py: ray generation -> heightfield
+intersection -> shading -> compositing through plain gathers
+(``render_frame``, the scene's "reference" backend and its smooth-sphere
+preview), plus the per-frame parameters and shading terms every backend
+shares. The Moon is r(lat, lon) = MOON_RADIUS * h(lat, lon) over an
+equirectangular heightfield with peak normalized to 1.0; primary rays
+bracket the surface between the bounding and inner spheres with a
+fixed-step scan plus bisection refinement.
 """
 
 from __future__ import annotations
@@ -13,7 +19,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from moonrtx_tpu_torch import constants as C
-from moonrtx_tpu_torch.engine.geometry import mat3t_apply, normalize
+from moonrtx_tpu_torch.engine.camera import CameraBasis, ray_directions
+from moonrtx_tpu_torch.engine.geometry import (
+    latlon_to_unit,
+    mat3_apply,
+    mat3t_apply,
+    normalize,
+    ray_sphere,
+    unit_to_latlon,
+)
+from moonrtx_tpu_torch.ops import sampler
 
 
 class FrameParams(NamedTuple):
@@ -38,6 +53,85 @@ class FrameParams(NamedTuple):
 class RenderOutput(NamedTuple):
     rgb: torch.Tensor     # (H, W, 3) linear HDR
     hitbuf: torch.Tensor  # (H, W, 4) scene-frame hit position + distance (0 = miss)
+
+
+def surface_point(tex, lat, lon, h, w):
+    """Displaced surface position (body frame) at lat/lon."""
+    hs = sampler.sample_latlon(tex, lat, lon, h, w)
+    return C.MOON_RADIUS * hs[..., None] * latlon_to_unit(lat, lon), hs
+
+
+def _field(tex, h, w, ob, db, t):
+    """Signed radial distance f(t) = |p| - R*h(latlon(p)); negative inside."""
+    p = ob + t[..., None] * db
+    lat, lon = unit_to_latlon(p)
+    hs = sampler.sample_latlon(tex, lat, lon, h, w)
+    return torch.linalg.norm(p, dim=-1) - C.MOON_RADIUS * hs, p, lat, lon
+
+
+def intersect_heightfield(tex, h: int, w: int, h_min: float, ob, db,
+                          n_coarse: int = 48, n_bisect: int = 10):
+    """Bracket-and-bisect intersection against the displaced sphere.
+
+    ob: (3,) body-frame ray origin; db: (..., 3) unit directions.
+    Returns (hit, t_hit, lat, lon, p_hit). n_coarse samples along each
+    ray's in-shell chord find the first sign change; n_bisect bisection
+    steps refine it."""
+    r_out = C.MOON_RADIUS
+    r_in = C.MOON_RADIUS * h_min
+    hit_out, t_enter, t_exit_out = ray_sphere(ob, db, r_out)
+    hit_in, t_in, _ = ray_sphere(ob, db, r_in * 0.999)
+    t_enter = torch.clamp(t_enter, min=0.0)
+    t_end = torch.where(hit_in & (t_in > 0), t_in, t_exit_out)
+
+    found = torch.zeros(db.shape[:-1], dtype=torch.bool, device=db.device)
+    t_lo, t_hi = t_enter, t_end
+    for k in range(n_coarse):
+        frac = (k + 1.0) / n_coarse
+        t_k = t_enter + (t_end - t_enter) * frac
+        f_k = _field(tex, h, w, ob, db, t_k)[0]
+        newly = (~found) & (f_k < 0.0) & hit_out
+        t_prev = t_enter + (t_end - t_enter) * (k * 1.0 / n_coarse)
+        t_lo = torch.where(newly, t_prev, t_lo)
+        t_hi = torch.where(newly, t_k, t_hi)
+        found = found | newly
+
+    for _ in range(n_bisect):
+        t_mid = 0.5 * (t_lo + t_hi)
+        outside = _field(tex, h, w, ob, db, t_mid)[0] > 0.0
+        t_lo, t_hi = (torch.where(outside, t_mid, t_lo),
+                      torch.where(outside, t_hi, t_mid))
+    t_hit = 0.5 * (t_lo + t_hi)
+    p = ob + t_hit[..., None] * db
+    lat, lon = unit_to_latlon(p)
+    return found, t_hit, lat, lon, p
+
+
+def intersect_smooth_sphere(radius: float, ob, db):
+    """Analytic intersection with the mean sphere (no displacement)."""
+    hit, t0, _ = ray_sphere(ob, db, radius)
+    hit = hit & (t0 > 0)
+    t_hit = torch.where(hit, t0, 0.0)
+    p = ob + t_hit[..., None] * db
+    lat, lon = unit_to_latlon(p)
+    return hit, t_hit, lat, lon, p
+
+
+def surface_normal(tex, h: int, w: int, lat, lon, hs):
+    """Geometric normal from central differences of the displaced surface,
+    half-texel spacing, pole-safe."""
+    dlat = 0.5 * 180.0 / h
+    coslat = torch.clamp(torch.cos(torch.deg2rad(lat)), min=0.05)
+    dlon = dlat / coslat
+    p_c = C.MOON_RADIUS * hs[..., None] * latlon_to_unit(lat, lon)
+    p_n, _ = surface_point(tex, lat + dlat, lon, h, w)
+    p_s, _ = surface_point(tex, lat - dlat, lon, h, w)
+    p_e, _ = surface_point(tex, lat, lon + dlon, h, w)
+    p_w, _ = surface_point(tex, lat, lon - dlon, h, w)
+    n = normalize(torch.linalg.cross(p_e - p_w, p_n - p_s))
+    # orient outward
+    outward = torch.sum(n * p_c, dim=-1, keepdim=True)
+    return torch.where(outward < 0.0, -n, n)
 
 
 def soft_ndotl(mu, sigma):
@@ -109,6 +203,40 @@ def earth_light_terms(fp: FrameParams, p_body, n_body):
     return eclipse_rgb, earthshine
 
 
+def shade_lambert(albedo, n_body, p_body, fp: FrameParams, shadow,
+                  sigma=None, bounce=None, view_db=None):
+    """Diffuse shading with the area light's irradiance calibration.
+
+    sigma: optional per-pixel normal-tilt stddev for roughness-compensated
+    shading (see soft_ndotl). bounce: optional one-bounce terrain
+    irradiance (ops.shadow_scan.bounce_from_parts units: adds to
+    n.l * shadow before the irradiance scale). view_db: per-pixel unit ray
+    directions in the body frame; required for the lunar-Lambert blend
+    (fp.lunar_blend), ignored otherwise."""
+    light_body = mat3t_apply(fp.rotation, fp.light_pos)
+    to_light = normalize(light_body - p_body)
+    mu = torch.sum(n_body * to_light, dim=-1)
+    if sigma is None:
+        ndotl = torch.clamp(mu, min=0.0)
+    else:
+        ndotl = torch.where(sigma > 1e-6, soft_ndotl(mu, sigma),
+                            torch.clamp(mu, min=0.0))
+    if fp.lunar_blend is not None and view_db is not None:
+        # lunar-Lambert (McEwen): L*2*mu0/(mu0+mu_e) + (1-L)*mu0, with
+        # mu_e = cos(emission) = -n.view; L=0 degenerates to exact Lambert
+        mu_e = torch.clamp(-torch.sum(n_body * view_db, dim=-1), min=0.02)
+        ls = 2.0 * ndotl / (ndotl + mu_e + 1e-6)
+        ndotl = fp.lunar_blend * ls + (1.0 - fp.lunar_blend) * ndotl
+    term = ndotl * shadow
+    if bounce is not None:
+        term = term + bounce
+    rgb = albedo * (fp.irradiance * term)[..., None]
+    ecl, earthshine = earth_light_terms(fp, p_body, n_body)
+    if ecl is not None:
+        rgb = rgb * ecl + albedo * (fp.irradiance * earthshine)[..., None]
+    return rgb
+
+
 def sun_disk_hit(eye, dirs_scene, fp: FrameParams):
     """Analytic visible-Sun-disk test in scene frame (flat white sphere,
     never shadow-casting)."""
@@ -116,6 +244,63 @@ def sun_disk_hit(eye, dirs_scene, fp: FrameParams):
     b = torch.sum(oc * dirs_scene, dim=-1)
     cc = torch.sum(oc * oc, dim=-1) - fp.sun_disk_radius ** 2
     return (b * b - cc > 0.0) & (b < 0.0)
+
+
+def render_frame(tex, albedo_tex, background, shadow_fn_args,
+                 basis: CameraBasis, fp: FrameParams, jitter, height: int,
+                 width: int, h: int, w: int, h_min: float,
+                 h_mean: float = 1.0, displaced: bool = True,
+                 n_coarse: int = 48, bounce_map=None) -> RenderOutput:
+    """One full linear-HDR frame + hit buffer through plain gathers.
+
+    background: (H, W, 3) star background for this camera pose, or None
+    for black. shadow_fn_args: optional (shadow_map, smap_params) from
+    ops.shadow_scan; None disables cast shadows. bounce_map: optional
+    one-bounce irradiance map on the same scan grid; requires
+    shadow_fn_args."""
+    from moonrtx_tpu_torch.ops.shadow_scan import shadow_lookup
+
+    dirs_scene = ray_directions(basis, height, width, jitter)
+    ob = mat3t_apply(fp.rotation, basis.eye)
+    db = mat3t_apply(fp.rotation, dirs_scene)
+
+    if displaced:
+        hit, t_hit, lat, lon, p = intersect_heightfield(
+            tex, h, w, h_min, ob, db, n_coarse=n_coarse)
+    else:
+        hit, t_hit, lat, lon, p = intersect_smooth_sphere(
+            C.MOON_RADIUS * h_mean, ob, db)
+
+    hs = sampler.sample_latlon(tex, lat, lon, h, w)
+    n_body = (surface_normal(tex, h, w, lat, lon, hs) if displaced
+              else normalize(p))
+    albedo = sampler.sample_latlon(albedo_tex, lat, lon, h, w)
+
+    bounce = None
+    if shadow_fn_args is not None:
+        shadow_map, smap_params = shadow_fn_args
+        shadow = shadow_lookup(shadow_map, smap_params, p)
+        if bounce_map is not None:
+            # same grid parametrization + night-side clamp as the shadow
+            bounce = shadow_lookup(bounce_map, smap_params, p)
+    else:
+        shadow = torch.ones_like(t_hit)
+
+    rgb = shade_lambert(albedo, n_body, p, fp, shadow, bounce=bounce,
+                        view_db=db)
+
+    disk = sun_disk_hit(basis.eye, dirs_scene, fp)
+    miss_rgb = (torch.zeros((height, width, 3), dtype=torch.float32,
+                            device=rgb.device)
+                if background is None else background)
+    miss_rgb = torch.where(disk[..., None], C.SUN_DISK_COLOR, miss_rgb)
+    rgb = torch.where(hit[..., None], rgb, miss_rgb)
+
+    p_scene = mat3_apply(fp.rotation, p)
+    hitbuf = torch.cat(
+        [torch.where(hit[..., None], p_scene, 0.0),
+         torch.where(hit, t_hit, 0.0)[..., None]], dim=-1)
+    return RenderOutput(rgb=rgb, hitbuf=hitbuf)
 
 
 def accumulate(accum, frame_rgb, n):

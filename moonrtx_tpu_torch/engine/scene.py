@@ -1,16 +1,28 @@
 """MoonScene: scene state + device resources, single device (torch).
 
-Port of moonrtx_tpu/engine/scene.py, the parts of the headless main path:
-device-resident mip pyramids, the ephemeris-driven FrameParams, camera
-state, the shadow/bounce maps, and the accumulation burst through the
-march kernel (the reference's "pallas" backend; on the card the four
-hand-written kernels, on the CPU their plain versions).
+Port of moonrtx_tpu/engine/scene.py: device-resident mip pyramids, the
+ephemeris-driven FrameParams, camera state, the shadow/bounce maps, and
+progressive accumulation through three backends:
 
-In this slice a time change drops the pose caches, so the next burst
-takes the pose program. The reference's time-step programs, flip cache,
-speculative prefetch, device mesh and banded uploads come in later
-slices; so do the blocked-XLA and gather-reference backends and the
-incremental one-sample accumulation.
+* "blocked" (what "auto" and "mxu" resolve to, and "reference" on a
+  quantized scene): per-block windows cut by K5, march and shading in
+  plain torch ops, one sample per render_accumulation_frame;
+* "pallas": windows cut by K1 and every sample of a burst through the
+  march kernel K2 (render_accumulation_burst), later samples one at a
+  time through the same kernel;
+* "reference": plain gathers on the full maps (engine/render.py), the
+  check of the other two.
+
+On the card each kernel is the hand-written one, on the CPU its plain
+version. One rule of the reference's backend resolution does not come
+across: off a TPU the reference turns "pallas" into "blocked", because
+its fused kernel needs the TPU compiler; here "pallas" stays the march
+path on the card and on the CPU alike.
+
+A time change or a camera change drops the pose caches, so the next
+render rebuilds them. The reference's drift reuse of the windows, its
+time-step programs, flip cache, speculative prefetch, device mesh and
+banded uploads come in later slices.
 """
 
 from __future__ import annotations
@@ -133,17 +145,19 @@ class MoonScene:
         if int(getattr(config, "devices", 1)) != 1:
             raise NotImplementedError(
                 "multi-device rendering is not ported yet")
-        self.backend = config.backend
-        if self.backend not in ("auto", "pallas"):
-            raise NotImplementedError(
-                f"backend {self.backend!r} is not ported yet; the port "
-                "renders through the march kernel ('pallas'/'auto')")
-
         quant = config.quantize
         if quant == "auto":
             quant = ("i16" if elevation.shape[0] * elevation.shape[1]
                      > QUANTIZE_TEXELS else "off")
         self.quantized = quant == "i16"
+
+        self.backend = config.backend
+        if self.backend in ("auto", "mxu"):
+            self.backend = "blocked"
+        if self.quantized and self.backend == "reference":
+            # the gather path has no decode plumbing; quantized (large-map)
+            # scenes always render through the windowed paths
+            self.backend = "blocked"
 
         # Mips, quantization, max map, slope stats: built by data.pyramids
         # (numpy) behind a device-ready disk cache for quantized maps.
@@ -253,8 +267,8 @@ class MoonScene:
         self._origins = None         # WindowOrigins (per pose+level+rotation)
         self._hbound = None          # per-block chord bound (pose-local)
         self._wincache = None        # WindowCache
+        self._shadowwin = None       # ShadowWindows, or FUSED_SHADOW_STATE
         self._packed = None          # PackedWindows (march-kernel layout)
-        self._packed_shadow = False  # _packed holds the current sun's windows
         self._cache_level = None
 
     # ---- state updates -------------------------------------------------
@@ -262,10 +276,9 @@ class MoonScene:
     def update_view(self, dt_local: Optional[datetime] = None) -> MoonEphemeris:
         """Recompute ephemeris-driven state (reference moon_renderer.py:638-664).
 
-        In this slice any time change drops the pose caches: the next
-        burst takes the pose program (window origins, extraction, packing,
-        shadow windows and the burst). The reference's drift reuse with
-        its time-step programs comes in a later slice."""
+        Any time change drops the pose caches: the next render rebuilds
+        window origins, windows and shadow windows. The reference's drift
+        reuse with its time-step programs comes in a later slice."""
         if dt_local is not None:
             self.dt_local = dt_local
         self.ephem = calculate_ephemeris(
@@ -299,6 +312,41 @@ class MoonScene:
                    if (self.config.eclipse_shading
                        or self.config.earthshine) else None),
         )
+
+    def set_brightness(self, brightness: int) -> None:
+        self.brightness = int(np.clip(brightness, *C.BRIGHTNESS_RANGE))
+        if self.ephem is not None:
+            self._fp = self._fp._replace(irradiance=torch.as_tensor(
+                np.float32(light_mod.sun_irradiance_factor(
+                    self.brightness, self.ephem)), device=self.device))
+        self.reset_accumulation()
+
+    def set_camera(self, camera: Camera) -> None:
+        """Install a new camera pose. Every camera change drops the pose
+        caches (the reference reuses the windows across small moves; that
+        drift budget comes with the time-step slice)."""
+        self.camera = camera
+        self._camera_changed()
+
+    def set_view_orientation(self, orientation: str) -> None:
+        self.view_orientation = orientation
+        self._camera_changed()
+
+    def _camera_changed(self) -> None:
+        self._basis = None
+        self._background = None
+        self._origins = None
+        self._hbound = None
+        self.reset_accumulation()
+
+    def set_shadows(self, on: bool) -> None:
+        """Toggle cast shadows. Shadow state is always stale across a
+        toggle: the map, windows and packed state rebuild lazily with the
+        next frame."""
+        self.shadows_on = bool(on)
+        self._shadow_dirty = True
+        self._shadowwin = None
+        self.reset_accumulation()
 
     def reset_accumulation(self) -> None:
         self._accum_n = 0
@@ -451,16 +499,131 @@ class MoonScene:
 
     # ---- rendering -------------------------------------------------------
 
+    def _ensure_blocked_caches(self, level: int, geom) -> int:
+        """(Re)build the window caches of the windowed backends when
+        invalid; returns the albedo level. The blocked backend's windows
+        are cut one per block by K5 (f32 shadow windows), the march
+        path's by K1 into its packed layout."""
+        h, w = self.mip_shapes[level]
+        alevel = self.albedo_level(level)
+        ah, aw = self.mip_shapes[alevel]
+        grouped = self.backend == "pallas"
+        if self._origins is None or self._cache_level != level:
+            # stride levels available above the render level (q up to 4)
+            max_qexp = min(2, len(self.mips) - 1 - level,
+                           len(self.albedo_mips) - 1 - alevel)
+            self._origins = blocked.window_origins(
+                geom, h, w, self.mips[level].shape[1], ah, aw,
+                self.albedo_mips[alevel].shape[1], max_qexp=max_qexp,
+                slope_maps=self.slope_maps[level:level + max_qexp + 1])
+            self._wincache = blocked.extract_window_cache(
+                tuple(self.mips[level:level + max_qexp + 1]),
+                tuple(self.albedo_mips[alevel:alevel + max_qexp + 1]),
+                self._origins, h_scale=self.h_scale, h_offset=self.h_offset,
+                a_scale=self.a_scale, grouped=grouped)
+            self._cache_level = level
+            self._shadowwin = None
+            self._packed = None
+        if geom.h_bound is not None:
+            # pose-local chord bound, reused by every burst until the
+            # origins are dropped
+            self._hbound = geom.h_bound
+        if (self._shadowwin is blocked.FUSED_SHADOW_STATE
+                and self.backend != "pallas"):
+            self._shadowwin = None  # the sentinel means nothing off the march path
+        if self.shadows_on and self._shadowwin is None:
+            # the maps depend only on the sun and stay cached across pose
+            # changes; the windows are the geometry-dependent half
+            smap, sparams = self.shadow_args()
+            self._shadowwin = blocked.build_shadow_windows(
+                smap, sparams, geom, bounce_map=self._bounce,
+                grouped=grouped)
+            if grouped and self._packed is not None:
+                swin_p, scal = blocked._pack_sun_parts(
+                    self._wincache, self._origins, self._shadowwin)
+                self._packed = self._packed._replace(swin=swin_p, scal=scal)
+            else:
+                self._packed = None
+        if grouped and self._packed is None:
+            self._packed = blocked.pack_windows(
+                self._wincache, self._origins,
+                self._shadowwin if self.shadows_on else None)
+        return alevel
+
+    def render_accumulation_frame(self):
+        """Render one accumulation sample and fold it into the running
+        mean. The random draws (jitter, then the march phase) follow the
+        reference call for call."""
+        if self.ephem is None:
+            self.update_view(self.dt_local)
+        level = self.mip_level()
+        h, w = self.mip_shapes[level]
+        if self._accum_n == 0:
+            jitter = torch.zeros(2, dtype=torch.float32, device=self.device)
+        else:
+            jitter = torch.as_tensor(
+                np.asarray(self._rng.random(2) - 0.5, np.float32),
+                device=self.device)
+
+        if self.backend in ("blocked", "pallas") and self.displaced:
+            geom = blocked.block_rays(
+                self.render_basis(), self._fp.rotation, jitter, self.height,
+                self.width, self.h_min, maxmap=self.maxmap)
+            alevel = self._ensure_blocked_caches(level, geom)
+            ah, aw = self.mip_shapes[alevel]
+            if self.shadows_on:
+                smap, sparams = self.shadow_args()
+                n_phi = smap.shape[1] - shadow_scan.PHI_PAD
+                shadow_windows = self._shadowwin
+            else:
+                sparams, n_phi, shadow_windows = None, 0, None
+            jitter_t = (0.5 if self._accum_n == 0
+                        else np.float32(self._rng.random()))
+            if self.backend == "pallas":
+                # one jittered sample through the march kernel, from the
+                # packed windows
+                rgb, hitbuf = blocked.render_accumulate_pallas(
+                    self._packed, sparams, self.background(), self.maxmap,
+                    self.render_basis(), self._fp, self._jitter_rows(jitter),
+                    self.height, self.width, h, w, self.h_min, ah=ah, aw=aw,
+                    n_samples=1, use_shadow=self.shadows_on,
+                    hbound=self._hbound)
+                out = render_mod.RenderOutput(rgb=rgb, hitbuf=hitbuf)
+            else:
+                out = blocked.render_frame_blocked(
+                    self._wincache, self._origins, geom, shadow_windows,
+                    sparams, self.background(), self.render_basis(),
+                    self._fp, float(jitter_t), self.height, self.width, h, w,
+                    ah, aw, n_phi=n_phi)
+        else:
+            shadow_fn_args = self.shadow_args()
+            out = render_mod.render_frame(
+                self.mips[level], self.albedo_mips[level], self.background(),
+                shadow_fn_args, self.render_basis(), self._fp, jitter,
+                self.height, self.width, h, w, self.h_min,
+                h_mean=1.0 / self.radius_scale, displaced=self.displaced,
+                bounce_map=(self._bounce if shadow_fn_args is not None
+                            else None))
+
+        if self._accum_n == 0 or self._accum is None:
+            self._accum = out.rgb
+            self._hitbuf = out.hitbuf
+        else:
+            self._accum = render_mod.accumulate(self._accum, out.rgb,
+                                                float(self._accum_n))
+        self._accum_n += 1
+        return self._accum
+
     def ensure_accumulated(self, n_frames: Optional[int] = None) -> None:
-        """Accumulate up to n_frames samples in one burst."""
+        """Accumulate up to n_frames samples: the march path's first
+        samples in one burst, everything else sample by sample."""
         n = n_frames if n_frames is not None else self.config.accumulation_frames
-        if self._accum_n >= n:
+        if (self.backend == "pallas" and self.displaced
+                and self._accum_n == 0 and n > 0):
+            self.render_accumulation_burst(n)
             return
-        if not self.displaced or self._accum_n > 0:
-            raise NotImplementedError(
-                "incremental accumulation and the smooth-sphere path are "
-                "not ported yet: reset_accumulation() and render again")
-        self.render_accumulation_burst(n)
+        while self._accum_n < n:
+            self.render_accumulation_frame()
 
     def render(self, n_frames: Optional[int] = None) -> np.ndarray:
         """Accumulate up to n_frames samples and return the display image
@@ -478,6 +641,13 @@ class MoonScene:
             j[1:n_samples] = self._rng.random((n_samples - 1, 2)) - 0.5
         return torch.as_tensor(j, device=self.device)
 
+    def _jitter_rows(self, jitter) -> torch.Tensor:
+        """One per-frame jitter as row 0 of the fixed-shape jitter block."""
+        rows = torch.zeros((C.MAX_ACCUMULATION_FRAMES, 2),
+                           dtype=torch.float32, device=self.device)
+        rows[0] = jitter
+        return rows
+
     def render_accumulation_burst(self, n_samples: int) -> None:
         """All accumulation samples in one burst through the march kernel."""
         if self.ephem is None:
@@ -490,7 +660,7 @@ class MoonScene:
         pose_valid = (self._origins is not None
                       and self._cache_level == level
                       and self._packed is not None)
-        sun_valid = (not self.shadows_on) or self._packed_shadow
+        sun_valid = (not self.shadows_on) or (self._shadowwin is not None)
 
         if pose_valid and sun_valid:
             # nothing structural changed: just the burst
@@ -527,7 +697,8 @@ class MoonScene:
             self._hbound = hbound
             self._packed = blocked.PackedWindows(
                 hwin=hwin_p, awin=awin_p, swin=swin_p, scal=scal)
-            self._packed_shadow = self.shadows_on
+            self._shadowwin = (blocked.FUSED_SHADOW_STATE
+                               if self.shadows_on else None)
         self._accum = accum
         self._hitbuf = hitbuf
         self._accum_n = n_samples

@@ -152,6 +152,7 @@ def wrappers() -> dict:
 
     return {
         "extract_group_windows": extract.extract_group_windows,
+        "extract_level_windows": extract.extract_level_windows,
         "resample_group_windows": extract.resample_group_windows,
         "shadow_factor": shadow_prefix.shadow_factor,
         "march_shade": march_shade.march_shade,

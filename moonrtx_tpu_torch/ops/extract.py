@@ -7,10 +7,14 @@ kernels fetch tile-aligned superwindows by DMA and recompact them with
 one-hot MXU contractions (the TPU has no gather hardware). On Hopper each
 kernel reads its texels directly (csrc/extract.cu, csrc/resample.cu).
 
-Two kernels, each beside its plain PyTorch version:
+Three kernels, each beside its plain PyTorch version:
 
 * ``extract_group_windows`` (K1) — grouped multi-map extraction with the
-  affine decode ``value = raw * scale + offset``, bit-exact;
+  affine decode ``value = raw * scale + offset``, bit-exact, into the
+  march kernel's packed layout;
+* ``extract_level_windows`` / ``extract_windows`` (K5) — one decoded f32
+  window per block, any block count, levels read through their strides
+  (a channel plane of an (H, W, 3) level is not copied), bit-exact;
 * ``resample_group_windows`` (K4) — extraction fused with a bilinear
   resample on bf16 mean-centered residuals.
 
@@ -52,9 +56,11 @@ def decode_affine(raw, scale: float, offset: float):
     return out
 
 
-def _cut_windows(levels, lvl_idx, r0, c0, wh: int, ww: int):
+def _cut_windows(levels, lvl_idx, r0, c0, wh: int, ww: int,
+                 zero_outside: bool = False):
     """(nblk, wh, ww) raw windows, block b from levels[lvl_idx[b]] at its
-    (r0, c0); indices clamp into the level like the kernels' guard."""
+    (r0, c0). Indices clamp into the level like K1's and K4's guard; with
+    zero_outside, texels outside the level are raw 0 instead (K5)."""
     nblk = r0.shape[0]
     dev = r0.device
     out = torch.zeros((nblk, wh, ww), dtype=levels[0].dtype, device=dev)
@@ -64,9 +70,15 @@ def _cut_windows(levels, lvl_idx, r0, c0, wh: int, ww: int):
         sel = torch.nonzero(lvl_idx == k)[:, 0]
         if sel.numel() == 0:
             continue
-        rows = torch.clamp(r0[sel, None].long() + ar, 0, lvl.shape[0] - 1)
-        cols = torch.clamp(c0[sel, None].long() + ac, 0, lvl.shape[1] - 1)
-        out[sel] = lvl[rows[:, :, None], cols[:, None, :]]
+        rows = r0[sel, None].long() + ar
+        cols = c0[sel, None].long() + ac
+        rc = torch.clamp(rows, 0, lvl.shape[0] - 1)
+        cc = torch.clamp(cols, 0, lvl.shape[1] - 1)
+        win = lvl[rc[:, :, None], cc[:, None, :]]
+        if zero_outside:
+            inside = ((rows == rc)[:, :, None] & (cols == cc)[:, None, :])
+            win = torch.where(inside, win, torch.zeros_like(win))
+        out[sel] = win
     return out
 
 
@@ -180,6 +192,99 @@ def extract_group_windows(map_levels, lvl_idx, r0, c0, wh: int, ww: int,
 
 
 extract_group_windows.launches = 0
+
+
+# ---- one window per block from the block's own level (K5) ------------------
+
+_LEVEL_DTYPES = (torch.float32, torch.int16, torch.uint8)
+
+
+class _LevelArgs(ctypes.Structure):
+    _fields_ = [
+        ("tex", ctypes.c_void_p * MAX_LEVELS),
+        ("rows", ctypes.c_longlong * MAX_LEVELS),
+        ("cols", ctypes.c_longlong * MAX_LEVELS),
+        ("row_stride", ctypes.c_longlong * MAX_LEVELS),
+        ("elem_stride", ctypes.c_longlong * MAX_LEVELS),
+        ("lvl", ctypes.c_void_p), ("r0", ctypes.c_void_p),
+        ("c0", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("scale", ctypes.c_float), ("offset", ctypes.c_float),
+        ("nblk", ctypes.c_int), ("n_levels", ctypes.c_int),
+        ("wh", ctypes.c_int), ("ww", ctypes.c_int),
+        ("src_dtype", ctypes.c_int),
+    ]
+
+
+def extract_level_windows_plain(levels, lvl_idx, r0, c0, wh: int, ww: int,
+                                scale: float = 1.0, offset: float = 0.0):
+    """Plain PyTorch version of extract_level_windows (same contract)."""
+    return decode_affine(
+        _cut_windows(levels, lvl_idx, r0, c0, wh, ww, zero_outside=True),
+        float(scale), float(offset))
+
+
+def extract_level_windows(levels, lvl_idx, r0, c0, wh: int, ww: int,
+                          scale: float = 1.0, offset: float = 0.0):
+    """Per-block windows from levels[lvl_idx[b]] in one pass (K5).
+
+    Replaces moonrtx_tpu/ops/extract.py::extract_level_windows_tpu.
+    levels: 1..4 same-dtype 2-D pyramid levels (f32, int16 or uint8), of
+    any strides: a channel plane ``lvl[:, :, ch]`` of an (H, W, 3) level is
+    read in place. lvl_idx/r0/c0: (nblk,) int32, the origins in each
+    block's own level coordinates, pre-clamped to [0, H_k-wh] x
+    [0, W_k-ww]; nblk is arbitrary. Texels outside the level (a level
+    smaller than the window) come back as raw 0, as from the reference
+    kernel's zero-padded levels.
+
+    Returns (nblk, wh, ww) f32, decoded ``raw*scale + offset`` with the
+    multiply and the add separately rounded. Bit-exact against the plain
+    version.
+    """
+    call = dict(locals())
+    levels = list(levels)
+    nblk = _check_common(levels, lvl_idx, r0, c0)
+    if levels[0].dtype not in _LEVEL_DTYPES:
+        raise TypeError(f"unsupported map dtype {levels[0].dtype}")
+    if lvl_idx.device.type != "cuda":
+        return extract_level_windows_plain(levels, lvl_idx, r0, c0, wh, ww,
+                                           scale, offset)
+    if len(levels) > MAX_LEVELS:
+        raise ValueError("too many levels for the kernel")
+    if any(st < 0 for lvl in levels for st in lvl.stride()):
+        raise ValueError("levels must have non-negative strides")
+    out = torch.empty((nblk, wh, ww), dtype=torch.float32,
+                      device=lvl_idx.device)
+    a = _LevelArgs()
+    for i, lvl in enumerate(levels):
+        a.tex[i] = lvl.data_ptr()
+        a.rows[i], a.cols[i] = lvl.shape
+        a.row_stride[i], a.elem_stride[i] = lvl.stride()
+    a.lvl, a.r0, a.c0 = (lvl_idx.data_ptr(), r0.data_ptr(), c0.data_ptr())
+    a.out = out.data_ptr()
+    a.scale, a.offset = float(scale), float(offset)
+    a.nblk, a.n_levels, a.wh, a.ww = nblk, len(levels), wh, ww
+    a.src_dtype = _DTYPE_CODE[levels[0].dtype]
+    with torch.cuda.device(lvl_idx.device):
+        rc = kernels.entry("extract", "mrtx_extract_level_windows",
+                           _LevelArgs)(ctypes.byref(a),
+                                       kernels.stream_of(out))
+    kernels.check("extract", rc)
+    kernels.launched(extract_level_windows, call)
+    return out
+
+
+extract_level_windows.launches = 0
+
+
+def extract_windows(tex, r0, c0, wh: int, ww: int, scale: float = 1.0,
+                    offset: float = 0.0):
+    """Per-block windows of one 2-D map, decoded f32 (K5 with one level).
+
+    Replaces moonrtx_tpu/ops/extract.py::extract_windows_tpu (and its
+    dispatcher extract_windows). r0/c0: (nblk,) int32 pre-clamped to
+    [0, H-wh] x [0, W-ww]."""
+    return extract_level_windows((tex,), torch.zeros_like(r0), r0, c0, wh,
+                                 ww, scale=scale, offset=offset)
 
 
 # ---- fused window resample (extraction + bilinear in one kernel) -----------

@@ -60,12 +60,28 @@ def gather_bilinear(tex, row, col):
             + g(r0 + 1, c0 + 1) * fr_ * fc_)
 
 
-def window_bilinear(windows, wy, wx):
+def extract_windows(tex, r0, c0, wh: int, ww: int):
+    """Per-block windows tex[r0[b]:r0[b]+wh, c0[b]:c0[b]+ww], raw dtype.
+
+    tex: (H, W) or (H, W, C); r0/c0: (NBLK,) int32, pre-clamped to the
+    valid range. The plain per-block slice (the reference's vmapped
+    dynamic_slice); the decoded kernel form is ops.extract.extract_windows,
+    and this one is its independent check."""
+    rows = r0.long()[:, None] + torch.arange(wh, device=r0.device)
+    cols = c0.long()[:, None] + torch.arange(ww, device=r0.device)
+    return tex[rows[:, :, None], cols[:, None, :]]
+
+
+def window_bilinear(windows, wy, wx, mix_dtype=None):
     """Bilinear sampling from per-block windows.
 
     windows: (NBLK, WH, WW) or (NBLK, WH, WW, C)
     wy, wx:  (NBLK, B) window-local fractional coords (clamped to the window)
     returns  (NBLK, B) or (NBLK, B, C)
+
+    mix_dtype (3-D windows only): the row-mixed intermediate is rounded to
+    this dtype before the column mix, as the reference's bf16 row-mix of
+    mean-centered residuals rounds it.
     """
     nblk, wh, ww = windows.shape[:3]
     wy = torch.clamp(wy, 0.0, wh - 1.001)
@@ -87,7 +103,16 @@ def window_bilinear(windows, wy, wx):
     # rows first, then columns (the reference's contraction order)
     left = g(0) * (1.0 - fy) + g(ww) * fy
     right = g(1) * (1.0 - fy) + g(ww + 1) * fy
+    if mix_dtype is not None and windows.ndim == 3:
+        left = left.to(mix_dtype).to(torch.float32)
+        right = right.to(mix_dtype).to(torch.float32)
     return left * (1.0 - fx) + right * fx
+
+
+def sample_latlon(tex, lat_deg, lon_deg, h: int, w: int):
+    """Gather-backend sample at lat/lon on a padded map."""
+    row, col = latlon_to_rowcol(lat_deg, lon_deg, h, w)
+    return gather_bilinear(tex, row, col)
 
 
 def block_footprint(rows, cols, wrap_w):

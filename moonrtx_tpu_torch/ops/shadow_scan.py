@@ -10,8 +10,13 @@ meridian with smaller colatitude sticks out further from the sun axis:
 
 computed as one exclusive running max per meridian (K3,
 ops/shadow_prefix.py) over heights resampled onto the scan grid through
-per-block windows (K4, ops/extract.py::resample_group_windows). The
-bounce pyramid is plain torch, as the reference computes it in XLA.
+per-block windows (K4, ops/extract.py::resample_group_windows; when the
+block count does not divide by the resample group, windows cut by K5,
+ops/extract.py::extract_windows, and sampled in plain torch). With
+``blocked_resample=False`` the scan is the reference's gather resample
+and running-max formulation in plain torch ops, the check of the kernel
+path. The bounce pyramid is plain torch, as the reference computes it in
+XLA.
 
 The scan grid is banded: coarse from the subsolar pole to 75 deg, fine
 across the terminator band 75..105 deg; the shadow-accuracy factor
@@ -86,11 +91,16 @@ def _decimate_tex(m):
 def _resample_heights_blocked(tex, h: int, w: int, row, col,
                               scale: float = 1.0, offset: float = 0.0,
                               group: int = 8):
-    """Resample a map at the scan-grid positions through per-block windows
-    (K4). Blocks of 8x64 scan cells share one (40, 184) window; a block
-    whose texture footprint outgrows the window samples a 2x/4x-decimated
+    """Resample a map at the scan-grid positions through per-block windows.
+    Blocks of 8x64 scan cells share one (40, 184) window; a block whose
+    texture footprint outgrows the window samples a 2x/4x-decimated
     level. tex may be quantized (int16/uint8, value = raw*scale+offset);
     output is decoded f32.
+
+    When the block count divides by ``group`` the extraction and the
+    bilinear are one kernel (K4). Otherwise every level's windows are cut
+    by K5, blended by the block's level, mean-centered and sampled with a
+    bf16 row mix (the reference's ungrouped branch).
 
     row/col: (n_theta, n_phi) fractional source coordinates."""
     BH, BW, WH_, WW_ = 8, 64, 40, 184
@@ -135,10 +145,24 @@ def _resample_heights_blocked(tex, h: int, w: int, row, col,
     # seam blocks: unwrap points left of the window origin
     cq = torch.where(cq < c0[:, None].to(cq.dtype) - 0.5,
                      cq + (w / q)[:, None], cq)
-    vals = extract_ops.resample_group_windows(
-        levels, qexp, r0, c0,
-        rq - r0[:, None].to(rq.dtype), cq - c0[:, None].to(cq.dtype),
-        WH_, WW_, scale=scale, offset=offset, group=group)
+    wy = rq - r0[:, None].to(rq.dtype)
+    wx = cq - c0[:, None].to(cq.dtype)
+    if nb % group == 0:
+        vals = extract_ops.resample_group_windows(
+            levels, qexp, r0, c0, wy, wx, WH_, WW_, scale=scale,
+            offset=offset, group=group)
+    else:
+        per = [extract_ops.extract_windows(
+            lvl, torch.clamp(r0, max=lvl.shape[0] - WH_),
+            torch.clamp(c0, max=lvl.shape[1] - WW_), WH_, WW_,
+            scale=scale, offset=offset) for lvl in levels]
+        wins = per[-1]
+        for li in range(len(per) - 2, -1, -1):
+            wins = torch.where((qexp == li)[:, None, None], per[li], wins)
+        mean = torch.mean(wins, dim=(1, 2))[:, None]
+        # mean-centered residuals survive the bf16 row mix
+        vals = sampler.window_bilinear(wins - mean[..., None], wy, wx,
+                                       mix_dtype=torch.bfloat16) + mean
     v = vals.reshape(n_theta // BH, n_phi // BW, BH, BW)
     return torch.movedim(v, 1, 2).reshape(n_theta, n_phi)
 
@@ -170,16 +194,48 @@ def resample_alb_half(alb_lum, sun_basis, h: int, w: int, n_coarse: int,
                                    2, dim=1)
 
 
+def _running_max_factor(hs, st, ct, sun_ang_radius: float):
+    """Penumbra factor from an exclusive running max of (m, z) along theta
+    in plain torch ops (the reference's associative scan): the blocker is
+    the earliest row that reaches the running maximum of m (a later equal
+    key does not replace it, the reference's tie rule)."""
+    n_theta, n_phi = hs.shape
+    r = C.MOON_RADIUS * hs
+    m = r * st
+    z = r * ct
+    neg = torch.full((1, n_phi), -1.0, dtype=m.dtype, device=m.device)
+    m_pad = torch.cat([neg, m[:-1]], dim=0)
+    z_pad = torch.cat([torch.zeros_like(neg), z[:-1]], dim=0)
+    m_max = torch.cummax(m_pad, dim=0)[0]
+    # first row whose key equals the running max: a strict new maximum
+    rows = torch.arange(n_theta, device=m.device)[:, None].expand_as(m_pad)
+    prev = torch.cat([torch.full_like(neg, -float("inf")), m_max[:-1]],
+                     dim=0)
+    at = torch.cummax(torch.where(m_pad > prev, rows, 0), dim=0)[0]
+    z_at = torch.gather(z_pad, 0, at)
+    dz = torch.clamp(z_at - z, min=1e-6)
+    alpha = torch.atan2(m_max - m, dz)
+    factor = torch.clamp(0.5 - alpha / (2.0 * sun_ang_radius), 0.0, 1.0)
+    # subsolar cap: no blockers possible at theta ~ 0
+    return torch.where(m_max < 0.0, 1.0, factor)
+
+
 def scan_wedge(tex, sun_basis, sun_ang_radius: float, h: int, w: int,
                n_coarse: int, n_fine: int, n_phi_total: int, phi0,
-               n_phi: int, alb_lum=None, h_scale: float = 1.0,
-               h_offset: float = 0.0, resample_group: int = 8):
-    """Scan an azimuth wedge [phi0, phi0 + n_phi) of the sun-frame grid
-    through the kernels (the reference's blocked_resample=True path).
+               n_phi: int, blocked_resample: bool = False, alb_lum=None,
+               h_scale: float = 1.0, h_offset: float = 0.0,
+               return_heights: bool = False, resample_group: int = 8):
+    """Scan an azimuth wedge [phi0, phi0 + n_phi) of the sun-frame grid.
 
-    Returns the factor map, or (factor, heights, albedo_lum) with
-    alb_lum (an albedo-luminance map at the same (h, w) level) for the
-    one-bounce irradiance map (bounce_from_parts)."""
+    blocked_resample=True (what build_shadow_map and
+    build_shadow_and_bounce pass) resamples through per-block windows and
+    takes the prefix-max kernel (K3), raising for a grid it does not take;
+    False is the gather resample with the running max in plain torch ops.
+
+    Returns the factor map; (factor, heights) with return_heights; or
+    (factor, heights, albedo_lum) with alb_lum (an albedo-luminance map at
+    the same (h, w) level) for the one-bounce irradiance map
+    (bounce_from_parts)."""
     dev = tex.device
     theta = torch.as_tensor(np.deg2rad(_theta_grid(n_coarse, n_fine)),
                             device=dev)[:, None]
@@ -189,20 +245,32 @@ def scan_wedge(tex, sun_basis, sun_ang_radius: float, h: int, w: int,
     st, ct = torch.sin(theta), torch.cos(theta)
     lat, lon = unit_to_latlon(_scan_dirs(sun_basis, theta, phi))
     row, col = sampler.latlon_to_rowcol(lat, lon, h, w)
-    hs = _resample_heights_blocked(tex, h, w, row, col, scale=h_scale,
-                                   offset=h_offset, group=resample_group)
     n_theta = int(theta.shape[0])
-    if not shadow_prefix.prefix_ok(n_theta, n_phi):
-        raise ValueError(f"unsupported scan grid ({n_theta}, {n_phi})")
-    factor = shadow_prefix.shadow_factor(hs, st, ct, sun_ang_radius,
-                                         C.MOON_RADIUS)
+    if blocked_resample:
+        hs = _resample_heights_blocked(tex, h, w, row, col, scale=h_scale,
+                                       offset=h_offset, group=resample_group)
+    else:
+        # the gather promotes raw int values per fetch; the decode commutes
+        # with the bilinear because its weights sum to 1
+        hs = extract_ops.decode_affine(
+            sampler.gather_bilinear(tex, row, col), h_scale, h_offset)
+    if blocked_resample:
+        # the kernel path never drops to the plain running max by itself
+        if not shadow_prefix.prefix_ok(n_theta, n_phi):
+            raise ValueError(f"unsupported scan grid ({n_theta}, {n_phi})")
+        factor = shadow_prefix.shadow_factor(hs, st, ct, sun_ang_radius,
+                                             C.MOON_RADIUS)
+    else:
+        factor = _running_max_factor(hs, st, ct, sun_ang_radius)
     if alb_lum is None:
-        return factor
-    if n_theta % 16 == 0 and n_phi % 128 == 0:
+        return (factor, hs) if return_heights else factor
+    if blocked_resample and n_theta % 16 == 0 and n_phi % 128 == 0:
         alb_s = resample_alb_half(alb_lum, sun_basis, h, w, n_coarse,
                                   n_fine, n_phi_total, phi0, n_phi)
-    else:
+    elif blocked_resample:
         alb_s = _resample_heights_blocked(alb_lum, h, w, row, col)
+    else:
+        alb_s = sampler.gather_bilinear(alb_lum, row, col)
     return factor, hs, alb_s
 
 
@@ -391,7 +459,8 @@ def build_shadow_map(tex, h: int, w: int, sun_dir_body, sun_ang_radius: float,
     n_coarse, n_fine, n_phi = _resolution(accuracy)
     basis = torch.stack(sun_frame_basis(sun_dir_body))
     factor = scan_wedge(tex, basis, sun_ang_radius, h, w, n_coarse, n_fine,
-                        n_phi, 0, n_phi, h_scale=h_scale, h_offset=h_offset)
+                        n_phi, 0, n_phi, blocked_resample=True,
+                        h_scale=h_scale, h_offset=h_offset)
     smap = torch.cat([factor, factor[:, :PHI_PAD]], dim=1)
     return smap, _params(basis, n_coarse, n_fine, n_phi, sun_ang_radius)
 
@@ -406,8 +475,8 @@ def build_shadow_and_bounce(tex, alb_lum, h: int, w: int, sun_dir_body,
     basis = torch.stack(sun_frame_basis(sun_dir_body))
     factor, hs, alb_s = scan_wedge(tex, basis, sun_ang_radius, h, w,
                                    n_coarse, n_fine, n_phi, 0, n_phi,
-                                   alb_lum=alb_lum, h_scale=h_scale,
-                                   h_offset=h_offset)
+                                   blocked_resample=True, alb_lum=alb_lum,
+                                   h_scale=h_scale, h_offset=h_offset)
     smap = torch.cat([factor, factor[:, :PHI_PAD]], dim=1)
     bounce = bounce_from_parts(hs, factor, alb_s, n_coarse, n_fine, n_phi,
                                n_bounces=n_bounces)
@@ -430,3 +499,16 @@ def rowcol_of_points(params: ShadowMapParams, n_phi: int, p_body):
     col = phi / (2 * np.pi) * n_phi - 0.5
     col = torch.where(col < 0.0, col + n_phi, col)
     return row, col
+
+
+def shadow_lookup(shadow_map, params: ShadowMapParams, p_body):
+    """Sample the shadow factor at body-frame surface points (..., 3)
+    (gather path; the blocked backend uses per-block shadow windows)."""
+    n_phi = shadow_map.shape[1] - PHI_PAD
+    row, col = rowcol_of_points(params, n_phi, p_body)
+    zc = torch.sum(p_body * params.axis_z, dim=-1)
+    rho = torch.sqrt(torch.sum(p_body * p_body, dim=-1) - zc * zc)
+    theta = torch.rad2deg(torch.atan2(rho, zc))
+    val = sampler.gather_bilinear(shadow_map, row, col)
+    # beyond the scanned band it is deep night side
+    return torch.where(theta >= THETA_MAX_DEG, 0.0, val)

@@ -5,6 +5,10 @@ are no learned weights). ``scene_state_from_numpy`` turns host arrays —
 for instance ``np.asarray`` of a reference ``moonrtx_tpu`` MoonScene's
 device arrays — into the flat tensor dict that ``MoonScene.load_state``
 installs, so both packages can be shown to compute on identical state.
+``tuple_from_numpy`` does the same for the blocked pipeline's pose
+caches and per-frame tuples (WindowOrigins, WindowCache, ShadowWindows,
+RayGeom, FrameParams, ShadowMapParams, CameraBasis): the fields of the
+other package's tuple, as numpy, become the port's tuple of tensors.
 """
 
 from __future__ import annotations
@@ -39,3 +43,25 @@ def scene_state_from_numpy(arrays: dict) -> dict[str, torch.Tensor]:
     state["alb_min_level"] = torch.tensor(int(arrays["alb_min_level"]),
                                           dtype=torch.int64)
     return state
+
+
+def tuple_from_numpy(cls, fields: dict, device="cpu"):
+    """The port's NamedTuple ``cls`` from a {field: numpy array or None}
+    dict (for instance ``ref._asdict()`` of the reference's tuple of the
+    same name, each array through ``np.asarray``). Dtypes are kept
+    (float32, int32, bool); a float64 scalar becomes float32, the device
+    type of every such field. Fields the dict lacks take the tuple's
+    default."""
+    out = {}
+    for name in cls._fields:
+        if name not in fields:
+            continue
+        v = fields[name]
+        if v is None:
+            out[name] = None
+            continue
+        a = np.array(v, copy=True)
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        out[name] = torch.from_numpy(a).to(device)
+    return cls(**out)

@@ -1,11 +1,14 @@
-"""The port's window extraction (K1) and fused resample (K4) against the
-reference Pallas kernels run in interpret mode on the CPU.
+"""The port's window extraction (K1, K5) and fused resample (K4) against
+the reference Pallas kernels run in interpret mode on the CPU.
 
 Same inputs, made with numpy, go through moonrtx_tpu.ops.extract (Pallas,
 interpret=True) and moonrtx_tpu_torch.ops.extract (on CPU tensors the
 wrappers run their plain versions). Tolerances: K1 bit-exact for f32,
-int16, uint8 and bf16 sources; K4 within 4e-3 of the residual scale (the
-bf16 residual budget of tests/test_extract.py).
+int16, uint8 and bf16 sources; K5 bit-exact in its selection for f32,
+int16 and uint8 and within 1e-6 after the decode (the reference's XLA
+fuses the multiply and the add into one rounding, the port rounds twice);
+K4 within 4e-3 of the residual scale (the bf16 residual budget of
+tests/test_extract.py).
 """
 
 import jax.numpy as jnp
@@ -15,6 +18,7 @@ import torch
 
 from moonrtx_tpu.ops import extract as jx
 from moonrtx_tpu_torch.ops import extract as tx
+from moonrtx_tpu_torch.ops import sampler as tsampler
 
 
 def _maps(rng, dtype, shapes, n_maps):
@@ -92,6 +96,109 @@ def test_extract_group_windows_bitexact(dtype):
     got, ref = _extract_both(maps, dtype, lvl, r0, c0, wh, ww, scales,
                              offsets)
     assert np.abs(got - ref).max() <= 1e-6
+
+
+def _level_both(levels, lvl, r0, c0, wh, ww, scale, offset):
+    ref = np.asarray(jx.extract_level_windows_tpu(
+        tuple(jnp.asarray(a) for a in levels), jnp.asarray(lvl),
+        jnp.asarray(r0), jnp.asarray(c0), wh, ww, scale=scale,
+        offset=offset, interpret=True))
+    n0 = tx.extract_level_windows.launches
+    got = tx.extract_level_windows(
+        [torch.from_numpy(a) for a in levels], torch.from_numpy(lvl),
+        torch.from_numpy(r0), torch.from_numpy(c0), wh, ww, scale=scale,
+        offset=offset)
+    assert tx.extract_level_windows.launches == n0  # CPU: plain version
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+    return got.numpy(), ref
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16", "uint8"])
+def test_extract_level_windows_matches_kernel(dtype):
+    """K5: three levels, a block count that is no multiple of 8, and a
+    last level smaller than the window (its missing texels are raw 0, as
+    from the reference kernel's zero-padded levels)."""
+    rng = np.random.default_rng(21)
+    shapes = [(96, 300), (48, 150), (12, 30)]
+    levels = _maps(rng, dtype, shapes, 1)[0]
+    nblk, wh, ww = 13, 16, 40
+    lvl = rng.integers(0, 3, nblk).astype(np.int32)
+    lvl[:3] = [0, 1, 2]
+    r0 = np.array([rng.integers(0, max(shapes[k][0] - wh, 0) + 1)
+                   for k in lvl], np.int32)
+    c0 = np.array([rng.integers(0, max(shapes[k][1] - ww, 0) + 1)
+                   for k in lvl], np.int32)
+    got, ref = _level_both(levels, lvl, r0, c0, wh, ww, 1.0, 0.0)
+    np.testing.assert_array_equal(got, ref)
+    assert (got[lvl == 2][:, 12:, :] == 0).all()
+    assert (got[lvl == 2][:, :, 30:] == 0).all()
+    scale, offset = ((2.5e-5, 0.9) if dtype != "float32" else (2.0, -0.5))
+    got, ref = _level_both(levels, lvl, r0, c0, wh, ww, scale, offset)
+    assert np.abs(got - ref).max() <= 1e-6
+    # the per-block slice of the sampler is the independent check where
+    # the window fits its level
+    for k in (0, 1):
+        sel = lvl == k
+        win = tsampler.extract_windows(
+            torch.from_numpy(levels[k]), torch.from_numpy(r0[sel]),
+            torch.from_numpy(c0[sel]), wh, ww)
+        assert win.dtype == torch.from_numpy(levels[k]).dtype
+        np.testing.assert_array_equal(
+            tx.decode_affine(win, scale, offset).numpy(), got[sel])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16", "uint8"])
+def test_extract_windows_matches_kernel(dtype):
+    """K5 with one level (extract_windows) against extract_windows_tpu."""
+    rng = np.random.default_rng(22)
+    tex = _maps(rng, dtype, [(96, 300)], 1)[0][0]
+    nblk, wh, ww = 11, 40, 184
+    r0 = rng.integers(0, 96 - wh + 1, nblk).astype(np.int32)
+    c0 = rng.integers(0, 300 - ww + 1, nblk).astype(np.int32)
+    scale, offset = ((2.5e-5, 0.9) if dtype != "float32" else (1.0, 0.0))
+    ref = np.asarray(jx.extract_windows_tpu(
+        jnp.asarray(tex), jnp.asarray(r0), jnp.asarray(c0), wh, ww,
+        scale=scale, offset=offset, interpret=True))
+    got = tx.extract_windows(torch.from_numpy(tex), torch.from_numpy(r0),
+                             torch.from_numpy(c0), wh, ww, scale=scale,
+                             offset=offset).numpy()
+    assert got.shape == (nblk, wh, ww)
+    assert np.abs(got - ref).max() <= (0 if dtype == "float32" else 1e-6)
+
+
+def test_extract_level_windows_reads_strided_planes():
+    """A channel plane of an (H, W, 3) uint8 level goes in as a strided
+    view; the plain version gives what the contiguous copy gives, and 3-D
+    windows come from the sampler's slice."""
+    rng = np.random.default_rng(23)
+    full = torch.from_numpy(rng.integers(0, 256, (64, 200, 3))
+                            .astype(np.uint8))
+    r0 = torch.from_numpy(rng.integers(0, 64 - 40 + 1, 9).astype(np.int32))
+    c0 = torch.from_numpy(rng.integers(0, 200 - 64 + 1, 9).astype(np.int32))
+    z = torch.zeros_like(r0)
+    planes = [tx.extract_level_windows((full[:, :, ch],), z, r0, c0, 40, 64,
+                                       scale=1 / 255.0) for ch in range(3)]
+    assert not full[:, :, 1].is_contiguous()
+    for ch in range(3):
+        copy = tx.extract_level_windows(
+            (full[:, :, ch].contiguous(),), z, r0, c0, 40, 64,
+            scale=1 / 255.0)
+        assert torch.equal(planes[ch], copy)
+    win3 = tsampler.extract_windows(full, r0, c0, 40, 64)
+    assert win3.shape == (9, 40, 64, 3)
+    assert torch.equal(torch.stack(planes, dim=-1),
+                       tx.decode_affine(win3, 1 / 255.0, 0.0))
+
+
+def test_extract_level_windows_rejects_bad_inputs():
+    z = torch.zeros(5, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tx.extract_level_windows((torch.zeros(64, 64, dtype=torch.bfloat16),),
+                                 z, z, z, 8, 8)
+    with pytest.raises(ValueError):
+        tx.extract_level_windows((torch.zeros(64, 64),), z.long(), z, z, 8, 8)
+    with pytest.raises(ValueError):
+        tx.extract_level_windows((torch.zeros(64, 64, 3),), z, z, z, 8, 8)
 
 
 def test_extract_rejects_ragged_groups():

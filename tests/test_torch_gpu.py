@@ -5,7 +5,7 @@ present and skips without one. Run them on a machine with an H100:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu
 
-Tolerances: window extraction (K1) is bit-exact; the resample (K4) is
+Tolerances: window extraction (K1, K5) is bit-exact; the resample (K4) is
 within the bf16 residual budget (its window mean is summed in another
 order, which can move one bf16 rounding); the prefix scan (K3) is exact
 on rounding-free inputs up to the atan2 polynomial; the march (K2) agrees
@@ -83,6 +83,57 @@ def test_extract_group_windows_matches_plain(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int16", "uint8"])
+def test_extract_level_windows_matches_plain(cuda, dtype):
+    """K5 at the blocked backend's widths: a block count that does not
+    divide by 8, three levels of which the last is smaller than the
+    window, and for uint8 a channel plane of an (H, W, 3) level read in
+    place through its strides."""
+    rng = np.random.default_rng(3)
+    shapes = [(300, 700), (150, 350), (30, 50)]
+    wh, ww, nblk = 40, 64, 1021
+    if dtype == "uint8":
+        full = [torch.from_numpy(rng.integers(0, 255, (h, w, 3))
+                                 .astype(np.uint8)) for h, w in shapes]
+        levels = [f[:, :, 1] for f in full]
+        on_card = [f.to(cuda)[:, :, 1] for f in full]
+        assert not on_card[0].is_contiguous()
+    else:
+        levels = _levels(dtype, rng, shapes)
+        on_card = [l.to(cuda) for l in levels]
+    lvl = torch.from_numpy(rng.integers(0, 3, nblk).astype(np.int32))
+    hs = np.array([s_[0] for s_ in shapes])[lvl.numpy()]
+    ws = np.array([s_[1] for s_ in shapes])[lvl.numpy()]
+    r0 = torch.from_numpy((rng.random(nblk) * np.maximum(hs - wh, 0))
+                          .astype(np.int32))
+    c0 = torch.from_numpy((rng.random(nblk) * np.maximum(ws - ww, 0))
+                          .astype(np.int32))
+    scale, offset = (2.5e-5, 0.9) if dtype != "float32" else (1.0, 0.0)
+    ref = extract.extract_level_windows_plain(levels, lvl, r0, c0, wh, ww,
+                                              scale, offset)
+    n0 = extract.extract_level_windows.launches
+    ptrs = [l.data_ptr() for l in on_card]
+    got = extract.extract_level_windows(on_card, lvl.to(cuda), r0.to(cuda),
+                                        c0.to(cuda), wh, ww, scale=scale,
+                                        offset=offset)
+    torch.cuda.synchronize()
+    assert extract.extract_level_windows.launches == n0 + 1
+    assert [l.data_ptr() for l in on_card] == ptrs      # no level copied
+    assert got.shape == (nblk, wh, ww) and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), ref)
+    # a level smaller than the window reads as raw 0 past its edge
+    small = lvl == 2
+    assert bool(small.any())
+    assert torch.all(got.cpu()[small][:, 30:, :] == offset)
+    one = extract.extract_windows(on_card[0], r0.to(cuda) % 260,
+                                  c0.to(cuda) % 636, wh, ww, scale=scale,
+                                  offset=offset)
+    ref_one = extract.extract_level_windows_plain(
+        levels[:1], torch.zeros_like(lvl), r0 % 260, c0 % 636, wh, ww,
+        scale, offset)
+    assert torch.equal(one.cpu(), ref_one)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16", "uint8"])
 def test_resample_group_windows_matches_plain(cuda, dtype):
     rng = np.random.default_rng(2)
     shapes = [(300, 900), (150, 450)]
@@ -144,10 +195,27 @@ def test_scene_renders_through_the_kernels(cuda):
     img = s.render(4)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    k5 = counts.pop("extract_level_windows")
+    assert k5 == 0 and all(v > 0 for v in counts.values()), counts
     assert counts["march_shade"] == 4
     assert img.shape == (144, 256, 3) and img.max() > 0
     assert torch.isfinite(s._accum).all()
+
+    # the same scene through the blocked backend: K5 cuts its six window
+    # sets (heights, three albedo planes, shadow, bounce) once for the pose
+    import dataclasses
+    sb = MoonScene(dataclasses.replace(cfg, backend="blocked"),
+                   (elev / rs).astype(np.float32), rs, albedo, None)
+    sb.update_view()
+    kernels.reset_launch_counts()
+    img_b = sb.render(4)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["extract_level_windows"] == 6, counts
+    assert counts["march_shade"] == 0 and counts["extract_group_windows"] == 0
+    assert torch.isfinite(sb._accum).all()
+    d = np.abs(img_b.astype(int) - img.astype(int)).max(axis=-1)
+    assert d.mean() < 3.0
 
     # the march kernel against its plain version on the scene's own windows
     p = s._packed

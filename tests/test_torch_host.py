@@ -36,6 +36,7 @@ def _imports(path: Path):
 def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "moonrtx_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "tools" / "torch_frame_profile.py")
     assert len(files) > 30
     for path in files:
         for name in _imports(path):
@@ -59,6 +60,43 @@ def test_scene_without_device_raises_when_no_card(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("quantize", ["off", "i16"])
+def test_backend_resolution_table(quantize, tmp_path, monkeypatch):
+    """Every backend name the configuration accepts, on an f32 and on a
+    quantized scene, resolves as the reference resolves it, with one
+    stated exception: "pallas" stays the march path in the port (on the
+    card its kernel, on the CPU the kernel's plain version), where the
+    reference off a TPU falls back to "blocked"."""
+    import moonrtx_tpu.config as jconfig
+    import moonrtx_tpu_torch.config as tconfig
+    from moonrtx_tpu.engine.scene import MoonScene as JScene
+    from moonrtx_tpu_torch.engine.scene import MoonScene as TScene
+
+    monkeypatch.setenv("MOONRTX_TPU_CACHE", str(tmp_path))
+    rng = np.random.default_rng(0)
+    elev = (1.0 - 0.01 * rng.random((90, 180))).astype(np.float32)
+    alb = rng.random((90, 180, 3)).astype(np.float32)
+    expected = {"auto": "blocked", "mxu": "blocked", "blocked": "blocked",
+                "reference": "blocked" if quantize == "i16" else "reference",
+                "pallas": "pallas"}
+    for name, want in expected.items():
+        kw = dict(width=128, height=64, backend=name, quantize=quantize)
+        ts = TScene(tconfig.RenderConfig(**kw).validate(), elev, 1.0, alb,
+                    None, device="cpu")
+        js = JScene(jconfig.RenderConfig(**kw).validate(), elev, 1.0, alb,
+                    None)
+        assert ts.quantized == js.quantized == (quantize == "i16")
+        assert ts.backend == want, name
+        if name == "pallas":
+            assert js.backend == "blocked"      # the reference off a TPU
+        else:
+            assert js.backend == ts.backend, name
+    with pytest.raises(NotImplementedError):
+        TScene(tconfig.RenderConfig(width=128, height=64,
+                                    devices=2).validate(),
+               elev, 1.0, alb, None, device="cpu")
 
 
 @pytest.mark.parametrize("quantized", [False, True])

@@ -12,6 +12,16 @@ nonzero): right behind a blocker the factor atan2(m_max - m, z_at - z) /
 (2 sar) divides by a tiny z_at - z, and the two frameworks' sin/asin/atan2
 differ by ulps (the reference's XLA also fuses m_max - r*sin into one
 rounding).
+
+The scan's other branches: the ungrouped resample (windows cut by K5,
+blended by level, bf16 row mix) against the reference's, within 4e-3 of
+the heights' spread (the bf16 residual budget), once through the
+reference's plain slices and once through its K5 kernel in interpret
+mode; the running max in plain torch ops against the reference's
+associative scan on rounding-free inputs within 1e-5, ties included; the
+gather scan (blocked_resample=False) with heights within 1e-6 and the
+factor within 5e-3 on all but the share of texels that 1-ulp noise on the
+reference's own heights moves; shadow_lookup within 1e-5.
 """
 
 import jax.numpy as jnp
@@ -24,7 +34,7 @@ from moonrtx_tpu.ops import shadow_prefix as jprefix
 from moonrtx_tpu.ops import shadow_scan as jscan
 from moonrtx_tpu_torch.ops import shadow_prefix as tprefix
 from moonrtx_tpu_torch.ops import shadow_scan as tscan
-from torch_parity import jax_kernel_path, scan_self_noise
+from torch_parity import jax_kernel_path, scan_self_noise, ulp_noise
 
 
 def _exact_inputs(n_theta, n_phi, seed=7):
@@ -149,3 +159,159 @@ def test_bounce_from_parts_matches_reference():
                                   torch.from_numpy(factor),
                                   torch.from_numpy(alb), nc, nf, nphi)
     assert np.abs(got.numpy() - ref).max() <= 2e-3
+
+
+def _scan_args(tex, sun, n_phi):
+    basis_j = jnp.stack(jscan.sun_frame_basis(jnp.asarray(sun)))
+    basis_t = torch.stack(tscan.sun_frame_basis(torch.from_numpy(sun)))
+    h, w = tex.shape[0], tex.shape[1] - 192
+    return basis_j, basis_t, (h, w, 64, 64, n_phi, 0, n_phi)
+
+
+@pytest.mark.parametrize("kernel_path", [False, True])
+def test_ungrouped_resample_matches_reference(scan_inputs, kernel_path):
+    """A resample group that does not divide the block count takes the
+    ungrouped branch: K5 windows per level, blend, bf16 row mix."""
+    tex, _, sun = scan_inputs
+    basis_j, basis_t, grid = _scan_args(tex, sun, 512)
+    ang = 0.0046
+    nb = (128 // 8) * (512 // 64)
+    assert nb % 7 != 0
+
+    def ref():
+        return jscan.scan_wedge(
+            jnp.asarray(tex), basis_j, jnp.float32(ang), *grid,
+            blocked_resample=True, return_heights=True, resample_group=7)
+
+    if kernel_path:
+        with jax_kernel_path():
+            _, hs_j = ref()
+    else:
+        _, hs_j = ref()
+    from moonrtx_tpu_torch.ops import extract as tx
+    n5, n4 = tx.extract_level_windows.launches, tx.resample_group_windows.launches
+    factor_t, hs_t = tscan.scan_wedge(
+        torch.from_numpy(tex), basis_t, ang, *grid, blocked_resample=True,
+        return_heights=True, resample_group=7)
+    assert tx.extract_level_windows.launches == n5      # CPU: plain versions
+    assert tx.resample_group_windows.launches == n4
+    hs_j = np.asarray(hs_j)
+    assert hs_t.shape == hs_j.shape == (128, 512)
+    spread = float(hs_j.max() - hs_j.min())
+    assert spread > 1e-3
+    assert np.abs(hs_t.numpy() - hs_j).max() <= 4e-3 * spread
+    assert np.abs(hs_t.numpy() - hs_j).mean() <= 1e-4 * spread
+    # the grouped branch (K4) samples the same heights within the budget
+    _, hs_g = tscan.scan_wedge(
+        torch.from_numpy(tex), basis_t, ang, *grid, blocked_resample=True,
+        return_heights=True, resample_group=8)
+    assert np.abs(hs_g.numpy() - hs_t.numpy()).max() <= 4e-3 * spread
+    assert factor_t.shape == (128, 512)
+    assert 0.0 <= float(factor_t.min()) and float(factor_t.max()) <= 1.0
+
+
+def _xla_running_max(hs, st, ct, sar):
+    """The lines the reference's scan_wedge lowers without its kernel."""
+    import jax
+
+    n_phi = hs.shape[1]
+    r = C.MOON_RADIUS * hs
+    m = r * st
+    z = r * ct
+    neg = jnp.full((1, n_phi), -1.0, m.dtype)
+    m_pad = jnp.concatenate([neg, m[:-1]], axis=0)
+    z_pad = jnp.concatenate([jnp.zeros((1, n_phi), z.dtype), z[:-1]], axis=0)
+    m_max, z_at = jax.lax.associative_scan(
+        jscan._argmax_combine, (m_pad, z_pad), axis=0)
+    dz = jnp.maximum(z_at - z, 1e-6)
+    alpha = jnp.arctan2(m_max - m, dz)
+    factor = jnp.clip(0.5 - alpha / (2.0 * sar), 0.0, 1.0)
+    return jnp.where(m_max < 0.0, 1.0, factor)
+
+
+def test_running_max_factor_matches_associative_scan():
+    hs, st, ct = _exact_inputs(256, 128)
+    # plateaus of equal keys: the earliest blocker's z must win
+    hs[40:48, :] = hs[40, :]
+    st[40:48] = st[40]
+    ref = np.asarray(_xla_running_max(*(jnp.asarray(a) for a in (hs, st, ct)),
+                                      jnp.float32(0.0046)))
+    got = tscan._running_max_factor(*(torch.from_numpy(a) for a in
+                                      (hs, st, ct)), 0.0046).numpy()
+    assert 0.05 < (ref < 0.5).mean() < 0.95
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    # and the tie case of test_shadow_factor_tie_breaking
+    st = np.repeat([0.5, 0.25, 0.125, 0.0625], 64)[:, None]
+    hs = np.broadcast_to(np.repeat([0.5, 1.0, 2.0, 4.0], 64)[:, None],
+                         (256, 128)).copy()
+    hs[5, :] *= 1.0 + 2.0 ** -6
+    hs[100, :] *= 1.0 + 2.0 ** -6
+    ct = np.repeat([0.5, 0.5, -0.25, -0.5], 64)[:, None]
+    a = [x.astype(np.float32) for x in (hs, st, ct)]
+    ref = np.asarray(_xla_running_max(*(jnp.asarray(x) for x in a),
+                                      jnp.float32(0.01)))
+    got = tscan._running_max_factor(*(torch.from_numpy(x) for x in a),
+                                    0.01).numpy()
+    assert (0.05 < ref[128:, 0]).all() and (ref[128:, 0] < 0.45).all()
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+def test_gather_scan_matches_reference(scan_inputs):
+    """blocked_resample=False: gather resample + running max, with the
+    albedo resample; no kernel on either side."""
+    tex, alb_lum, sun = scan_inputs
+    basis_j, basis_t, grid = _scan_args(tex, sun, 500)   # not prefix_ok
+    ang = 0.0046
+    f_j, hs_j, alb_j = (np.asarray(a) for a in jscan.scan_wedge(
+        jnp.asarray(tex), basis_j, jnp.float32(ang), *grid,
+        blocked_resample=False, alb_lum=jnp.asarray(alb_lum)))
+    f_t, hs_t, alb_t = (a.numpy() for a in tscan.scan_wedge(
+        torch.from_numpy(tex), basis_t, ang, *grid, blocked_resample=False,
+        alb_lum=torch.from_numpy(alb_lum)))
+    np.testing.assert_allclose(hs_t, hs_j, atol=1e-6)
+    np.testing.assert_allclose(alb_t, alb_j, atol=1e-5)
+    # the factor is chaotic behind a blocker: hold it to what 1-ulp noise
+    # on the reference's own heights does to the reference
+    st = jnp.sin(jnp.asarray(np.deg2rad(jscan._theta_grid(64, 64))))[:, None]
+    ct = jnp.cos(jnp.asarray(np.deg2rad(jscan._theta_grid(64, 64))))[:, None]
+    clean = np.asarray(_xla_running_max(jnp.asarray(hs_j), st, ct,
+                                        jnp.float32(ang)))
+    noisy = np.asarray(_xla_running_max(jnp.asarray(ulp_noise(hs_j, 3)), st,
+                                        ct, jnp.float32(ang)))
+    np.testing.assert_allclose(clean, f_j, atol=1e-6)
+    noise_share = (np.abs(noisy - clean) > 5e-3).mean()
+    d = np.abs(f_t - f_j)
+    assert (d > 5e-3).mean() <= max(noise_share, 1e-3) and d.mean() < 2e-3
+    assert (f_j > 0.99).mean() > 0.2 and (f_j < 0.01).mean() > 0.05
+    # return_heights without the albedo map
+    f2, hs2 = tscan.scan_wedge(torch.from_numpy(tex), basis_t, ang, *grid,
+                               blocked_resample=False, return_heights=True)
+    assert np.array_equal(f2.numpy(), f_t) and np.array_equal(hs2.numpy(),
+                                                              hs_t)
+
+
+def test_shadow_lookup_matches_reference():
+    rng = np.random.default_rng(9)
+    nc, nf, nphi = 64, 64, 256
+    smap = rng.random((nc + nf, nphi + 2)).astype(np.float32)
+    sun = np.array([0.6, -0.7, 0.3], np.float32)
+    sun /= np.linalg.norm(sun)
+    x_j, y_j, z_j = jscan.sun_frame_basis(jnp.asarray(sun))
+    pj = jscan.ShadowMapParams(
+        axis_x=x_j, axis_y=y_j, axis_z=z_j, n_coarse=jnp.float32(nc),
+        n_fine=jnp.float32(nf), n_phi=jnp.float32(nphi),
+        sun_ang_radius=jnp.float32(0.0046))
+    pt = tscan._params(torch.stack([torch.from_numpy(np.array(a))
+                                    for a in (x_j, y_j, z_j)]),
+                       nc, nf, nphi, 0.0046)
+    p = rng.standard_normal((40, 128, 3)).astype(np.float32)
+    p *= 10.0 / np.linalg.norm(p, axis=-1, keepdims=True)
+    ref = np.asarray(jscan.shadow_lookup(jnp.asarray(smap), pj,
+                                         jnp.asarray(p)))
+    got = tscan.shadow_lookup(torch.from_numpy(smap), pt,
+                              torch.from_numpy(p)).numpy()
+    assert (ref == 0).mean() > 0.2 and (ref > 0).mean() > 0.3
+    # a point within an ulp of the scanned band's edge may fall either side
+    edge = (ref == 0) != (got == 0)
+    assert edge.mean() < 1e-3
+    np.testing.assert_allclose(got[~edge], ref[~edge], atol=2e-4)

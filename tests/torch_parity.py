@@ -5,12 +5,35 @@ CPU, as tests/test_pallas_kernel.py does: ``_fast_ok`` forced true and the
 Pallas kernels wrapped with ``interpret=True``. The jitted programs that
 baked in the other path are cleared on entry and again on exit, so the
 reference package is left as it was found.
+
+Importing this module also starts PyTorch's CPU thread pool (see
+``_start_torch_threads``), so every test file that compares frames
+imports it.
 """
 
 import contextlib
 
 import numpy as np
 import pytest
+import torch
+
+
+def _start_torch_threads():
+    """Run one parallel reduction before any test computes with torch.
+
+    The first parallel region of a process starts PyTorch's CPU thread
+    pool. On some hosts the operation that follows that first reduction
+    has been seen to read one worker's chunk of the result before its
+    final value was stored: the sqrt of a keepdim sum came out 3e-4 off
+    in 14 of 112 rows, in about a quarter of fresh processes and never
+    on a later call, which bends the ray directions of the first frame a
+    process renders by far more than any tolerance here. One throwaway
+    reduction absorbs it."""
+    w = torch.ones(256, 256, 3)
+    torch.sqrt(torch.sum(w * w, dim=-1, keepdim=True))
+
+
+_start_torch_threads()
 
 
 def _clear_jax_caches():
@@ -37,6 +60,10 @@ def jax_kernel_path():
         mp.setattr(extract, "_fast_ok", lambda: True)
         mp.setattr(extract, "extract_group_windows_tpu",
                    interpreted(extract.extract_group_windows_tpu))
+        mp.setattr(extract, "extract_level_windows_tpu",
+                   interpreted(extract.extract_level_windows_tpu))
+        mp.setattr(extract, "extract_windows_tpu",
+                   interpreted(extract.extract_windows_tpu))
         mp.setattr(extract, "resample_group_windows_tpu",
                    interpreted(extract.resample_group_windows_tpu))
         mp.setattr(shadow_prefix, "shadow_factor_tpu",

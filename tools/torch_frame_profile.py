@@ -2,10 +2,15 @@
 """Where a 1080p frame of the PyTorch/CUDA port spends its time, on one card.
 
     python3 tools/torch_frame_profile.py [--synth-shape 11520x23040]
+                                         [--backend pallas|blocked|reference]
 
 Builds chip_smoke.py's main-path scene (1920x1080, shadow accuracy 10,
-32 samples, synthetic LOLA-sized int16 map), renders the first frame,
-then measures with torch.cuda.synchronize() between stages:
+synthetic LOLA-sized int16 map) on the chosen backend: "pallas" (the
+march kernel, 32 samples in a burst; the default), "blocked" (per-block
+windows cut by K5, march and shading in plain torch ops, 8 samples one at
+a time) or "reference" (plain gathers; resolves to "blocked" on this
+quantized map). Renders the first frame, then measures with
+torch.cuda.synchronize() between stages:
 
 * a steady cold frame: a one-minute time step with the cached bounce map
   dropped (a minute moves the sun far less than the scene's bounce-reuse
@@ -13,7 +18,8 @@ then measures with torch.cuda.synchronize() between stages:
   the shadow scan + bounce pyramid, the pose program (window origins,
   extraction, packing) and the 32-sample burst;
 * its stages: the scan + bounce pyramid alone, then the pose program;
-* the warm re-burst (same pose, cached windows), per sample;
+* the warm re-burst (same pose, cached windows), per sample; on the
+  blocked backend the same samples one at a time from the cached windows;
 
 and traces one steady cold frame with torch.profiler, printing the device
 time by kernel name, the device busy time and the idle share of the
@@ -35,6 +41,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--synth-shape", default="11520x23040")
+    ap.add_argument("--backend", default="pallas",
+                    choices=("pallas", "blocked", "reference"))
     args = ap.parse_args(argv)
 
     import torch
@@ -58,11 +66,12 @@ def main(argv=None) -> int:
     cfg = RenderConfig(
         observer=Observer(50.06, 19.94, 219),
         dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
-        width=1920, height=1080, shadow_accuracy=10, backend="pallas",
+        width=1920, height=1080, shadow_accuracy=10, backend=args.backend,
         synth_shape=(th, tw), downscale=1).validate()
     scene = headless.build_scene(cfg)
     scene.update_view()
-    n = 32
+    n = 32 if scene.backend == "pallas" else 8
+    print(f"# backend {args.backend} -> {scene.backend}, {n} samples")
 
     def timed(fn):
         torch.cuda.synchronize()
