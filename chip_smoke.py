@@ -26,11 +26,19 @@ Phases, each fatal on failure:
 4. every kernel launch the two paths made is replayed on the same inputs:
    the kernel against its plain PyTorch version (with each kernel's
    tolerance), then timed: the kernel from torch.profiler's device events
-   of its own launches (no host time), the plain version and, where one
-   exists, a single library call computing the same function from CUDA
-   events;
+   of its own launches (no host time; a kernel of several passes is the
+   sum of its passes, which are also printed one by one), the plain
+   version and, where one exists, a single library call computing the
+   same function (or the stated half of it) from CUDA events;
    the bound is computed from these inputs (bytes at 3.35 TB/s, operations
    at 67 TFLOP/s float32, H100 SXM data sheet);
+   then the prefix scan (K3) and the window resample (K4) run on inputs
+   made with numpy from a seed that a wrong split of their work would get
+   wrong (moonrtx_tpu_torch/hard_cases.py: tied keys across every chunk
+   boundary, the maximum in row 0, rising and falling columns on three
+   grids; windows on and past each level edge, every alignment of the
+   first column, samples on the last row and column, three dtypes), each
+   against its plain version;
 5. a small scene rendered through the kernels must agree with the same
    scene rendered by the plain versions on the CPU, for the march, the
    blocked and the gather reference backends; and a shadow scan whose
@@ -57,28 +65,28 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 SAMPLES = 32                   # accumulation samples of the march path
 BLOCKED_SAMPLES = 8            # one-sample frames of the blocked path
 
-# where each kernel lives, its __global__ function, and which TPU kernel
-# it replaces
+# where each kernel lives, its __global__ functions (one per pass of a
+# launch), and which TPU kernel it replaces
 KERNELS = {
     "extract_group_windows": dict(
         source="moonrtx_tpu_torch/csrc/extract.cu",
-        kernel="extract_group_kernel",
+        kernel=("extract_group_kernel",),
         replaces="moonrtx_tpu/ops/extract.py:372"),
     "extract_level_windows": dict(
         source="moonrtx_tpu_torch/csrc/extract.cu",
-        kernel="extract_level_kernel",
+        kernel=("extract_level_kernel",),
         replaces="moonrtx_tpu/ops/extract.py:239"),
     "march_shade": dict(
         source="moonrtx_tpu_torch/csrc/march_shade.cu",
-        kernel="march_kernel",
+        kernel=("march_kernel",),
         replaces="moonrtx_tpu/ops/pallas_march.py:633"),
     "shadow_factor": dict(
         source="moonrtx_tpu_torch/csrc/shadow_prefix.cu",
-        kernel="shadow_factor_kernel",
+        kernel=("shadow_chunk_max_kernel", "shadow_factor_kernel"),
         replaces="moonrtx_tpu/ops/shadow_prefix.py:120"),
     "resample_group_windows": dict(
         source="moonrtx_tpu_torch/csrc/resample.cu",
-        kernel="resample_kernel",
+        kernel=("resample_kernel",),
         replaces="moonrtx_tpu/ops/extract.py:516"),
 }
 # the kernels each main path must launch
@@ -88,6 +96,10 @@ PATH_KERNELS = {
     "blocked": ("extract_level_windows",),
 }
 K5_LAUNCHES_PER_POSE = 6   # heights, three albedo planes, shadow, bounce
+# device ms per launch of the first designs of the two kernels redesigned
+# since (one thread per column; a per-texel staging loop), from PERF.md:
+# this script's phase 4 on an NVIDIA H100 80GB HBM3 at 700.00 W
+EARLIER_MS = {"shadow_factor": 0.7888, "resample_group_windows": 0.1700}
 
 
 def fail(msg: str) -> None:
@@ -119,28 +131,39 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device milliseconds of one launch of the CUDA function
-    ``kernel`` over reps calls of fn (after a warm-up), from
-    torch.profiler's device events of that kernel alone, so the host work
-    of the wrapper between launches is not counted."""
+def device_ms(fn, passes: tuple, reps: int) -> tuple[float, dict]:
+    """Mean device milliseconds of one call of fn, which launches each of
+    the CUDA functions ``passes`` once, over reps calls (after a warm-up):
+    (all passes summed, {pass: its own}). From torch.profiler's device
+    events of those functions alone, so the host work of the wrapper
+    between launches is not counted. Every pass should show exactly reps
+    events, but the profiler sometimes drops a few (29 of 30, once 10 of
+    30): such a window is measured again, up to five in all, and after
+    that the last one counts if it shows at least half of every pass's
+    launches, each pass averaged over the events it has."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in ev.name]
-    if len(us) != reps:
-        fail(f"the profiler saw {len(us)} launches of {kernel}, "
-             f"expected {reps}")
-    return sum(us) / reps / 1e3
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = {kernel: [ev.time_range.elapsed_us() for ev in prof.events()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA
+                       and kernel in ev.name] for kernel in passes}
+        seen = {kernel: len(v) for kernel, v in us.items()}
+        if all(n == reps for n in seen.values()):
+            break
+        print(f"#   profiler window {attempt}: saw {seen} launches, expected "
+              f"{reps} of each", flush=True)
+    if not all(reps // 2 <= n <= reps for n in seen.values()):
+        fail(f"the profiler saw {seen} launches, expected {reps} of each")
+    by_pass = {kernel: sum(v) / len(v) / 1e3 for kernel, v in us.items()}
+    return sum(by_pass.values()), by_pass
 
 
 def touched_bytes(levels, lvl_idx, r0, c0, wh: int, ww: int) -> int:
@@ -222,8 +245,11 @@ def bound_of(name: str, call: dict, out) -> tuple[float, str]:
 
 def library_call(name: str, call: dict):
     """One PyTorch call computing the kernel's function on the same
-    inputs, or None. K4: F.grid_sample over the decoded windows (its
-    bilinear half; the windows are cut outside the timed call). K5, for a
+    inputs, or None. K3: torch.cummax over the keys m (its scan half
+    only: the carried z, the shift to the exclusive scan and the factor
+    are left out; m is formed outside the timed call). K4: F.grid_sample
+    over the decoded windows (its bilinear half only; the windows are cut
+    outside the timed call). K5, for a
     launch with a single level: one advanced-indexing gather of the raw
     windows (the decode is left out); a launch that picks among several
     levels has no single call."""
@@ -239,6 +265,9 @@ def library_call(name: str, call: dict):
         cols = (call["c0"].long()[:, None]
                 + torch.arange(call["ww"], device=lvl.device))[:, None, :]
         return lambda: lvl[rows, cols]
+    if name == "shadow_factor":
+        m = call["moon_radius"] * call["hs"] * call["st"]
+        return lambda: torch.cummax(m, dim=0)
     if name != "resample_group_windows":
         return None
     win = extract.decode_affine(
@@ -466,8 +495,8 @@ def main(argv=None) -> int:
                lvl_idx=hcall["lvl_idx"][sel].contiguous(),
                r0=hcall["r0"][sel].contiguous(),
                c0=hcall["c0"][sel].contiguous())
-    k5_one = device_ms(lambda: extract.extract_level_windows(**one),
-                       KERNELS["extract_level_windows"]["kernel"], 30)
+    k5_one, _ = device_ms(lambda: extract.extract_level_windows(**one),
+                          KERNELS["extract_level_windows"]["kernel"], 30)
     lib_one = cuda_ms(library_call("extract_level_windows", one), 20)
     print(f"# extract_level_windows on the {int(sel.sum())} level-0 height "
           f"blocks alone: kernel {k5_one:.4f} ms, one advanced-indexing "
@@ -502,6 +531,7 @@ def main(argv=None) -> int:
         errs = {}       # output -> (error, tolerance) nearest its limit
         max_err = 0.0   # the main output's largest error over the launches
         bound_ops = 0.0
+        passes = dict.fromkeys(KERNELS[name]["kernel"], 0.0)
         for call, weight in items:
             got = wrapper[name](**call)
             ref = plain[name](**call)
@@ -513,9 +543,23 @@ def main(argv=None) -> int:
                 if err * tol0 >= err0 * tol:
                     errs[what] = (err, tol)
             b_ms, b_by = bound_of(name, call, got)
-            k_ms = device_ms(lambda: wrapper[name](**call),
-                             KERNELS[name]["kernel"], 30)
+            k_ms, by_pass = device_ms(lambda: wrapper[name](**call),
+                                      KERNELS[name]["kernel"], 30)
+            for kernel, ms in by_pass.items():
+                passes[kernel] += weight * ms
             p_ms = cuda_ms(lambda: plain[name](**call), 2)
+            if name == "resample_group_windows":
+                # the bound counts a texel once, but windows overlap and
+                # every block reads its own whole window (from L2)
+                lv = call["levels"][0]
+                reread = got.shape[0] * call["wh"] * call["ww"] \
+                    * lv.element_size()
+                print(f"#   resample_group_windows launch: {lv.dtype} "
+                      f"levels, {got.shape[0]} blocks: {k_ms:.4f} ms, bound "
+                      f"{b_ms:.4f} ms, plain {p_ms:.3f} ms; the blocks read "
+                      f"{reread / 1e6:.1f} MB of windows in all, "
+                      f"{reread / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
+                      f"device-memory rate", flush=True)
             if name == "extract_level_windows":
                 lv = call["levels"][0]
                 print(f"#   extract_level_windows launch: {lv.dtype} levels, "
@@ -550,6 +594,62 @@ def main(argv=None) -> int:
               f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
               f"({entry['bound_by']}), library {entry['library_ms']}",
               flush=True)
+        if len(passes) > 1:
+            print(f"#   {name} by pass: " + ", ".join(
+                f"{kernel} {ms / n:.4f} ms" for kernel, ms in passes.items()),
+                flush=True)
+    for entry in report:
+        if entry["name"] in EARLIER_MS:
+            was = EARLIER_MS[entry["name"]]
+            print(f"# {entry['name']}: {entry['ms']:.4f} ms per launch, the "
+                  f"first design took {was:.4f} ms (PERF.md): "
+                  f"{was / entry['ms']:.2f}x", flush=True)
+
+    # ---- 4b. inputs that a wrong split of the work gets wrong ------------
+    from moonrtx_tpu_torch import constants, hard_cases
+
+    def on_card(a):
+        return torch.from_numpy(a).cuda()
+
+    for grid in ((1536, 4096), (2304, 4096), (384, 2048)):
+        worst, inner = 0.0, 1.0
+        for family in hard_cases.SHADOW_FAMILIES:
+            hs, st, ct = (on_card(a) for a in hard_cases.shadow_hard_case(
+                family, *grid, seed=11))
+            call = dict(hs=hs, st=st, ct=ct,
+                        sun_ang_radius=hard_cases.SHADOW_SAR,
+                        moon_radius=constants.MOON_RADIUS)
+            got = shadow_prefix.shadow_factor(**call)
+            ref = shadow_prefix.shadow_factor_plain(**call)
+            torch.cuda.synchronize()
+            worst = max(worst,
+                        compare("shadow_factor", call, got, ref)[0][1])
+            inner = min(inner, float(((ref > 0.0) & (ref < 1.0))
+                                     .float().mean()))
+            del got, ref
+        print(f"# shadow_factor on hard inputs, grid {grid}: "
+              f"{len(hard_cases.SHADOW_FAMILIES)} families, max |err| "
+              f"{worst:.3g} (tolerance 1e-4), at least {inner:.3f} of the "
+              f"factors strictly inside (0, 1)", flush=True)
+        if inner < 0.25:
+            fail("the hard shadow inputs saturate: they test nothing")
+    for dtype in hard_cases.RESAMPLE_DTYPES:
+        worst = (0.0, 1.0)
+        families = (hard_cases.RESAMPLE_FAMILIES
+                    + hard_cases.RESAMPLE_GUARD_FAMILIES)
+        for family in families:
+            case = hard_cases.resample_hard_case(family, dtype, seed=12)
+            call = hard_cases.resample_case_with(case, on_card)
+            got = extract.resample_group_windows(**call)
+            ref = extract.resample_group_windows_plain(**call)
+            torch.cuda.synchronize()
+            _, err, tol = compare("resample_group_windows", call, got,
+                                  ref)[0]
+            if err * worst[1] >= worst[0] * tol:
+                worst = (err, tol)
+        print(f"# resample_group_windows on hard inputs, {dtype}: "
+              f"{len(families)} families, nearest its tolerance: max |err| "
+              f"{worst[0]:.3g} (tolerance {worst[1]:.3g})", flush=True)
 
     # ---- 5. a small input: kernels against the plain path on the CPU ----
     from moonrtx_tpu_torch.data.synth import synthesize_moon

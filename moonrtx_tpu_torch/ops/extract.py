@@ -5,7 +5,8 @@ thousands of small windows ``tex[r0[b]:r0[b]+wh, c0[b]:c0[b]+ww]`` cut from
 device-resident pyramid levels, each block from its own level. The TPU
 kernels fetch tile-aligned superwindows by DMA and recompact them with
 one-hot MXU contractions (the TPU has no gather hardware). On Hopper each
-kernel reads its texels directly (csrc/extract.cu, csrc/resample.cu).
+kernel reads its texels directly (csrc/extract.cu; csrc/resample.cu
+streams a window's rows in aligned 16-byte chunks).
 
 Three kernels, each beside its plain PyTorch version:
 
@@ -300,8 +301,7 @@ class _ResampleArgs(ctypes.Structure):
         ("scale", ctypes.c_float), ("offset", ctypes.c_float),
         ("nblk", ctypes.c_int), ("b", ctypes.c_int),
         ("n_levels", ctypes.c_int), ("wh", ctypes.c_int),
-        ("ww", ctypes.c_int), ("row_tile", ctypes.c_int),
-        ("src_dtype", ctypes.c_int),
+        ("ww", ctypes.c_int), ("src_dtype", ctypes.c_int),
     ]
 
 
@@ -353,7 +353,10 @@ def resample_group_windows(levels, lvl_idx, r0, c0, wy, wx, wh: int,
     decoded window is mean-centered (mean over the exact window, f32),
     the residuals rounded to bf16 and sampled bilinearly with bf16 column
     weights and f32 row weights; the mean is added back. Returns
-    (nblk, b) f32.
+    (nblk, b) f32. On the card the mean of int16 and uint8 windows is the
+    exact integer mean of the raw texels, decoded once, and a window may
+    hold at most 65,535 texels and must fit the block's shared memory
+    (the scan's (40, 184) takes 15 to 30 KB of the 227).
     """
     call = dict(locals())
     nblk = _check_common(list(levels), lvl_idx, r0, c0)
@@ -387,7 +390,6 @@ def resample_group_windows(levels, lvl_idx, r0, c0, wy, wx, wh: int,
     a.scale, a.offset = float(scale), float(offset)
     a.nblk, a.b, a.n_levels = nblk, wy.shape[1], len(levels)
     a.wh, a.ww = wh, ww
-    a.row_tile = _row_tile(levels[0].dtype)
     a.src_dtype = _DTYPE_CODE[levels[0].dtype]
     with torch.cuda.device(wy.device):
         rc = kernels.entry("resample", "mrtx_resample_group_windows",

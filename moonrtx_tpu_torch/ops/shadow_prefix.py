@@ -5,8 +5,11 @@ iff its sun-aligned cylindrical radius ``m = R*h*sin(theta)`` exceeds the
 running max of ``m`` over the earlier rows of its sun meridian; the
 penumbra factor comes from the horizon elevation of the tallest blocker
 against the solar angular radius. The TPU kernel carried the
-per-meridian max across sequential grid steps; on Hopper one thread per
-column walks theta from the subsolar pole down (csrc/shadow_prefix.cu).
+per-meridian max across sequential grid steps; on Hopper theta is split
+into chunks of CHUNK_ROWS rows across thread blocks: one pass folds each
+chunk of a column to its first strict maximum, a second folds the chunks
+above its own and walks its rows (csrc/shadow_prefix.cu). The combine is
+associative, so the result equals the sequential walk bit for bit.
 
 Tie rule: strict ``>`` keeps the EARLIER element (the reference's
 _argmax_combine); the running max starts at -1.0 (heights are positive
@@ -21,6 +24,8 @@ import torch
 
 from moonrtx_tpu_torch import kernels
 from moonrtx_tpu_torch.ops.march_shade import atan2_poly
+
+CHUNK_ROWS = 32   # theta rows a thread walks; the kernel takes 16, 32, 64
 
 
 def prefix_ok(n_theta: int, n_phi: int) -> bool:
@@ -65,7 +70,8 @@ def shadow_factor_plain(hs, st, ct, sun_ang_radius: float,
 
 
 def shadow_factor(hs, st, ct, sun_ang_radius: float, moon_radius: float):
-    """Penumbra factor map from scan-grid heights in one pass (K3).
+    """Penumbra factor map from scan-grid heights (K3, two passes over
+    theta chunks on the card).
 
     Replaces moonrtx_tpu/ops/shadow_prefix.py::shadow_factor_tpu.
     hs: (n_theta, n_phi) f32 heights on the sun-frame scan grid;
@@ -87,15 +93,20 @@ def shadow_factor(hs, st, ct, sun_ang_radius: float, moon_radius: float):
         return shadow_factor_plain(hs, st, ct, sun_ang_radius, moon_radius)
     hs, st, ct = hs.contiguous(), st.contiguous(), ct.contiguous()
     out = torch.empty_like(hs)
+    # per chunk and column, the (m, z) of the chunk's first strict maximum
+    chunks = -(-n_theta // CHUNK_ROWS)
+    scratch = torch.empty((2, chunks, n_phi), dtype=torch.float32,
+                          device=hs.device)
     fn = kernels.lib("shadow_prefix").mrtx_shadow_factor
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_float,
-                                           ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(hs.device):
         rc = fn(kernels.ptr(hs), kernels.ptr(st), kernels.ptr(ct),
-                kernels.ptr(out), n_theta, n_phi, float(moon_radius),
-                float(sun_ang_radius), kernels.stream_of(out))
+                kernels.ptr(scratch), kernels.ptr(out), n_theta, n_phi,
+                float(moon_radius), float(sun_ang_radius), CHUNK_ROWS,
+                kernels.stream_of(out))
     kernels.check("shadow_prefix", rc)
     kernels.launched(shadow_factor, call)
     return out

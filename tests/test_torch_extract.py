@@ -19,6 +19,8 @@ import torch
 from moonrtx_tpu.ops import extract as jx
 from moonrtx_tpu_torch.ops import extract as tx
 from moonrtx_tpu_torch.ops import sampler as tsampler
+from torch_parity import (RESAMPLE_DTYPES, RESAMPLE_FAMILIES,
+                          resample_case_with, resample_hard_case)
 
 
 def _maps(rng, dtype, shapes, n_maps):
@@ -237,4 +239,27 @@ def test_resample_group_windows_matches_kernel(dtype):
         torch.from_numpy(wx), wh, ww, scale=scale, offset=offset).numpy()
     dec = [a.astype(np.float32) * scale + offset for a in levels]
     span = max(float(d.max() - d.min()) for d in dec)
+    assert np.abs(got - ref).max() <= 4e-3 * span
+
+
+@pytest.mark.parametrize("dtype", RESAMPLE_DTYPES)
+@pytest.mark.parametrize("family", RESAMPLE_FAMILIES)
+def test_resample_group_windows_hard_cases(family, dtype):
+    """K4's plain version against the reference kernel on the inputs a
+    row-streaming kernel gets wrong: windows on each edge and corner of
+    their level, first columns of every alignment in levels whose width
+    is no multiple of 8, samples on the last row and column the clamp
+    allows. Within 4e-3 of the decoded levels' span (the bf16 residual
+    budget of tests/test_extract.py)."""
+    case = resample_hard_case(family, dtype, b=128, seed=4)
+    ref = np.asarray(jx.resample_group_windows_tpu(
+        **{k: tuple(v) if k == "levels" else v for k, v in
+           resample_case_with(case, jnp.asarray).items()},
+        group=8, interpret=True))
+    got = tx.resample_group_windows_plain(
+        **resample_case_with(case, torch.from_numpy)).numpy()
+    dec = [a.astype(np.float32) * case["scale"] + case["offset"]
+           for a in case["levels"]]
+    span = max(float(d.max() - d.min()) for d in dec)
+    assert got.shape == ref.shape == case["wy"].shape
     assert np.abs(got - ref).max() <= 4e-3 * span

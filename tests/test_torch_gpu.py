@@ -7,8 +7,11 @@ present and skips without one. Run them on a machine with an H100:
 
 Tolerances: window extraction (K1, K5) is bit-exact; the resample (K4) is
 within the bf16 residual budget (its window mean is summed in another
-order, which can move one bf16 rounding); the prefix scan (K3) is exact
-on rounding-free inputs up to the atan2 polynomial; the march (K2) agrees
+order, which can move one bf16 rounding); the prefix scan (K3) equals
+its plain version bit for bit on the card (folding chunk aggregates in
+row order gives the sequential walk's carry at every row) and is within
+the atan2 polynomial's 1e-4 of the plain version on the CPU; both also on
+the inputs of moonrtx_tpu_torch/hard_cases.py; the march (K2) agrees
 on >= 99.9% of hit flags, within 2e-2 on rgb and within 5e-2 on the hit
 distance and point where both hit (its transcendental functions are the
 card's own).
@@ -21,7 +24,7 @@ import pytest
 import torch
 
 from moonrtx_tpu_torch import constants as C
-from moonrtx_tpu_torch import kernels
+from moonrtx_tpu_torch import hard_cases, kernels
 from moonrtx_tpu_torch.ops import extract, march_shade, shadow_prefix
 
 pytestmark = pytest.mark.gpu
@@ -166,14 +169,74 @@ def _exact_prefix_inputs(n_theta, n_phi, seed=7):
     return [torch.from_numpy(a.astype(np.float32)) for a in (hs, st, ct)]
 
 
-def test_shadow_factor_matches_plain(cuda):
-    hs, st, ct = _exact_prefix_inputs(1536, 512)
+@pytest.mark.parametrize("n_phi", [512, 4096])
+def test_shadow_factor_matches_plain(cuda, n_phi):
+    hs, st, ct = _exact_prefix_inputs(1536, n_phi)
     ref = shadow_prefix.shadow_factor_plain(hs, st, ct, 0.0046,
                                             C.MOON_RADIUS)
-    got = shadow_prefix.shadow_factor(hs.to(cuda), st.to(cuda), ct.to(cuda),
-                                      0.0046, C.MOON_RADIUS)
+    on_card = [a.to(cuda) for a in (hs, st, ct)]
+    n0 = shadow_prefix.shadow_factor.launches
+    got = shadow_prefix.shadow_factor(*on_card, 0.0046, C.MOON_RADIUS)
     torch.cuda.synchronize()
+    assert shadow_prefix.shadow_factor.launches == n0 + 1
     assert (got.cpu() - ref).abs().max().item() <= 1e-4
+    assert torch.equal(got, shadow_prefix.shadow_factor_plain(
+        *on_card, 0.0046, C.MOON_RADIUS))
+
+
+@pytest.mark.parametrize("grid", [(1536, 4096), (2304, 4096), (384, 2048)])
+@pytest.mark.parametrize("family", hard_cases.SHADOW_FAMILIES)
+def test_shadow_factor_hard_cases(cuda, family, grid):
+    """Tied keys across every chunk boundary, the maximum in row 0, rising
+    and falling columns: bit-equal to the plain version on the card."""
+    on_card = [torch.from_numpy(a).to(cuda) for a in
+               hard_cases.shadow_hard_case(family, *grid, seed=5)]
+    got = shadow_prefix.shadow_factor(*on_card, hard_cases.SHADOW_SAR,
+                                      C.MOON_RADIUS)
+    ref = shadow_prefix.shadow_factor_plain(*on_card, hard_cases.SHADOW_SAR,
+                                            C.MOON_RADIUS)
+    torch.cuda.synchronize()
+    assert ((ref > 0) & (ref < 1)).float().mean().item() > 0.25
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("chunk_rows", [16, 64])
+def test_shadow_factor_other_chunks_and_ragged_grids(cuda, chunk_rows,
+                                                     monkeypatch):
+    """The other chunk heights the kernel takes, on a grid that neither
+    divides by the chunk nor by the 128 columns of a thread block."""
+    monkeypatch.setattr(shadow_prefix, "CHUNK_ROWS", chunk_rows)
+    hs, st, ct = (torch.from_numpy(a).to(cuda) for a in
+                  hard_cases.shadow_hard_case("plateaus", 384, 2048, seed=6))
+    hs, st, ct = hs[:371, :1990].contiguous(), st[:371], ct[:371]
+    got = shadow_prefix.shadow_factor(hs, st, ct, hard_cases.SHADOW_SAR,
+                                      C.MOON_RADIUS)
+    ref = shadow_prefix.shadow_factor_plain(hs, st, ct,
+                                            hard_cases.SHADOW_SAR,
+                                            C.MOON_RADIUS)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", hard_cases.RESAMPLE_DTYPES)
+@pytest.mark.parametrize("family", hard_cases.RESAMPLE_FAMILIES
+                         + hard_cases.RESAMPLE_GUARD_FAMILIES)
+def test_resample_group_windows_hard_cases(cuda, family, dtype):
+    """Windows on and past each level edge, every alignment of the first
+    column in levels whose width is no multiple of 8, samples on the last
+    row and column: within the bf16 residual budget of the plain version."""
+    case = hard_cases.resample_hard_case(family, dtype, seed=7)
+    call = hard_cases.resample_case_with(
+        case, lambda a: torch.from_numpy(a).to(cuda))
+    n0 = extract.resample_group_windows.launches
+    got = extract.resample_group_windows(**call)
+    ref = extract.resample_group_windows_plain(**call)
+    torch.cuda.synchronize()
+    assert extract.resample_group_windows.launches == n0 + 1
+    span = float(max((l.float() * case["scale"] + case["offset"]).max()
+                     - (l.float() * case["scale"] + case["offset"]).min()
+                     for l in call["levels"]))
+    assert (got - ref).abs().max().item() <= 4e-3 * span
 
 
 def test_scene_renders_through_the_kernels(cuda):

@@ -5,6 +5,7 @@ modules against the reference.
   jax or anything of moonrtx_tpu;
 * no fallback: without a card, an entry point that was not asked for the
   CPU raises;
+* every CUDA function of csrc/ is one that chip_smoke.py times and checks;
 * the copied numpy modules give bit-identical pyramids and ephemerides;
 * geometry, camera, sampler and shading terms against the jnp versions on
   random inputs (float32; tolerances of a few ulps, as the two frameworks'
@@ -12,6 +13,8 @@ modules against the reference.
 """
 
 import ast
+import re
+import sys
 from datetime import datetime, timezone
 from pathlib import Path
 
@@ -42,6 +45,32 @@ def test_port_imports_no_jax_and_no_reference():
         for name in _imports(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "moonrtx_tpu"), (path, name)
+
+
+def test_every_global_function_is_named_in_chip_smoke(monkeypatch):
+    """Each __global__ function in csrc/*.cu is a pass of one entry of
+    chip_smoke.KERNELS, so no pass of a kernel goes untimed or unchecked,
+    and KERNELS names no function that does not exist."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    sys.modules.pop("chip_smoke", None)
+    import chip_smoke
+
+    declared = set()
+    sources = sorted((ROOT / "moonrtx_tpu_torch" / "csrc").glob("*.cu"))
+    assert len(sources) >= 4
+    for path in sources:
+        found = re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+            path.read_text())
+        assert len(found) == path.read_text().count("__global__"), path
+        declared.update(found)
+        for entry in chip_smoke.KERNELS.values():
+            if entry["source"].endswith("/" + path.name):
+                assert set(entry["kernel"]) <= set(found), (path, entry)
+    named = [k for entry in chip_smoke.KERNELS.values()
+             for k in entry["kernel"]]
+    assert len(named) == len(set(named))
+    assert declared == set(named)
 
 
 def test_scene_without_device_raises_when_no_card(monkeypatch):

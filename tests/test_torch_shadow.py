@@ -34,7 +34,8 @@ from moonrtx_tpu.ops import shadow_prefix as jprefix
 from moonrtx_tpu.ops import shadow_scan as jscan
 from moonrtx_tpu_torch.ops import shadow_prefix as tprefix
 from moonrtx_tpu_torch.ops import shadow_scan as tscan
-from torch_parity import jax_kernel_path, scan_self_noise, ulp_noise
+from torch_parity import (SHADOW_FAMILIES, SHADOW_SAR, jax_kernel_path,
+                          scan_self_noise, shadow_hard_case, ulp_noise)
 
 
 def _exact_inputs(n_theta, n_phi, seed=7):
@@ -74,6 +75,25 @@ def test_shadow_factor_tie_breaking():
     ct = np.repeat([0.5, 0.5, -0.25, -0.5], 64)[:, None]
     got, ref = _both(*(a.astype(np.float32) for a in (hs, st, ct)), 0.01)
     assert (0.05 < ref[128:, 0]).all() and (ref[128:, 0] < 0.45).all()
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_theta", [256, 384])
+@pytest.mark.parametrize("family", SHADOW_FAMILIES)
+def test_shadow_factor_hard_cases(family, n_theta):
+    """The inputs a split of theta across thread blocks gets wrong (tied
+    keys over every multiple of 16 rows, the maximum in row 0, rising and
+    falling columns): the plain version gives what the reference kernel
+    gives, within the atan2 polynomial's 1e-4, on factors that lie
+    strictly inside (0, 1) and so move with the carried (m_max, z_at)."""
+    hs, st, ct = shadow_hard_case(family, n_theta, 128, seed=3)
+    ref = np.asarray(jprefix.shadow_factor_tpu(
+        *(jnp.asarray(a) for a in (hs, st, ct)), jnp.float32(SHADOW_SAR),
+        C.MOON_RADIUS, interpret=True))
+    got = tprefix.shadow_factor_plain(
+        *(torch.from_numpy(a) for a in (hs, st, ct)), SHADOW_SAR,
+        C.MOON_RADIUS).numpy()
+    assert ((ref > 0.0) & (ref < 1.0)).mean() > 0.5
     np.testing.assert_allclose(got, ref, atol=1e-4)
 
 

@@ -9,6 +9,11 @@ reference package is left as it was found.
 Importing this module also starts PyTorch's CPU thread pool (see
 ``_start_torch_threads``), so every test file that compares frames
 imports it.
+
+``shadow_hard_case`` and ``resample_hard_case`` are the one numpy
+generator of the inputs a wrong split of a kernel's work gets wrong
+(moonrtx_tpu_torch/hard_cases.py, which the card's smoke run replays
+too); ``resample_case_with`` hands one case to either framework.
 """
 
 import contextlib
@@ -16,6 +21,11 @@ import contextlib
 import numpy as np
 import pytest
 import torch
+
+from moonrtx_tpu_torch.hard_cases import (  # noqa: F401  (for the tests)
+    RESAMPLE_DTYPES, RESAMPLE_FAMILIES, RESAMPLE_GUARD_FAMILIES,
+    SHADOW_FAMILIES, SHADOW_SAR, resample_case_with, resample_hard_case,
+    shadow_hard_case)
 
 
 def _start_torch_threads():
