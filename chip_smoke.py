@@ -20,9 +20,9 @@ Phases, each fatal on failure:
    per-sample time.
    The blocked path, on the same scene and maps (switched with
    ``scene.backend``, pose caches dropped with ``set_camera``): counters
-   set to 0, render(8), counters read; K5 must have launched six times for
-   the pose (heights, three albedo planes, shadow, bounce), the frame must
-   be finite and agree with the march path's frame;
+   set to 0, render(8), counters read; K5 must have launched three times
+   for the pose (heights, albedo as whole texels, shadow|bounce), the
+   frame must be finite and agree with the march path's frame;
 4. every kernel launch the two paths made is replayed on the same inputs:
    the kernel against its plain PyTorch version (with each kernel's
    tolerance), then timed: the kernel from torch.profiler's device events
@@ -32,13 +32,16 @@ Phases, each fatal on failure:
    same function (or the stated half of it) from CUDA events;
    the bound is computed from these inputs (bytes at 3.35 TB/s, operations
    at 67 TFLOP/s float32, H100 SXM data sheet);
-   then the prefix scan (K3) and the window resample (K4) run on inputs
-   made with numpy from a seed that a wrong split of their work would get
-   wrong (moonrtx_tpu_torch/hard_cases.py: tied keys across every chunk
+   then the prefix scan (K3), the window resample (K4) and the window
+   extraction (K1, K5) run on inputs made with numpy from a seed that a
+   wrong split of their work would get wrong
+   (moonrtx_tpu_torch/hard_cases.py: tied keys across every chunk
    boundary, the maximum in row 0, rising and falling columns on three
    grids; windows on and past each level edge, every alignment of the
-   first column, samples on the last row and column, three dtypes), each
-   against its plain version;
+   first column, samples on the last row and column, three dtypes; for
+   extraction also (H, W, 3) levels, levels smaller than the window, level
+   indices out of range, 1 and 37 blocks and the shadow|bounce pair, five
+   texel types, bit for bit), each against its plain version;
 5. a small scene rendered through the kernels must agree with the same
    scene rendered by the plain versions on the CPU, for the march, the
    blocked and the gather reference backends; and a shadow scan whose
@@ -95,11 +98,16 @@ PATH_KERNELS = {
                "resample_group_windows"),
     "blocked": ("extract_level_windows",),
 }
-K5_LAUNCHES_PER_POSE = 6   # heights, three albedo planes, shadow, bounce
-# device ms per launch of the first designs of the two kernels redesigned
-# since (one thread per column; a per-texel staging loop), from PERF.md:
-# this script's phase 4 on an NVIDIA H100 80GB HBM3 at 700.00 W
-EARLIER_MS = {"shadow_factor": 0.7888, "resample_group_windows": 0.1700}
+K5_LAUNCHES_PER_POSE = 3   # heights, albedo (whole texels), shadow|bounce
+# device ms of the earlier designs of the kernels redesigned since (one
+# thread per column; a per-texel staging loop; a thread per texel and
+# step), from PERF.md, on an NVIDIA H100 80GB HBM3 at 700.00 W: per launch
+# from this script's phase 4, and K5's per pose (six launches, the stack
+# and cat around them not counted) from tools/torch_kernel_tune.py
+EARLIER_MS = {"shadow_factor": 0.7888, "resample_group_windows": 0.1700,
+              "extract_group_windows": 0.2362,
+              "extract_level_windows": 0.6027}
+PER_POSE = ("extract_level_windows",)   # EARLIER_MS entries per pose
 
 
 def fail(msg: str) -> None:
@@ -168,9 +176,14 @@ def device_ms(fn, passes: tuple, reps: int) -> tuple[float, dict]:
 
 def touched_bytes(levels, lvl_idx, r0, c0, wh: int, ww: int) -> int:
     """Bytes of the distinct texels that per-block (wh, ww) windows cut
-    from their levels (a texel read by several windows counts once)."""
+    from their levels (a texel read by several windows counts once, with
+    all its channels). ``levels`` is one pyramid or several (maps)."""
     import torch
 
+    if not isinstance(levels[0], torch.Tensor):
+        return sum(touched_bytes(m, lvl_idx, r0, c0, wh, ww)
+                   for m in levels)
+    lvl_idx = torch.clamp(lvl_idx, 0, len(levels) - 1)
     total = 0
     for k, lvl in enumerate(levels):
         sel = lvl_idx == k
@@ -188,7 +201,8 @@ def touched_bytes(levels, lvl_idx, r0, c0, wh: int, ww: int) -> int:
                              (r1, c1, 1)):
             diff.index_put_((ri, ci), sign * ones, accumulate=True)
         cover = diff.cumsum(0).cumsum(1)[:h, :w] > 0
-        total += int(cover.sum()) * lvl.element_size()
+        total += int(cover.sum()) * lvl.element_size() * (
+            lvl.shape[2] if lvl.ndim == 3 else 1)
     return total
 
 
@@ -201,9 +215,8 @@ def bound_of(name: str, call: dict, out) -> tuple[float, str]:
     these inputs: each input byte read once, each output byte written
     once; operations at the float32 peak."""
     if name == "extract_group_windows":
-        by = sum(touched_bytes(levels, call["lvl_idx"], call["r0"],
-                               call["c0"], call["wh"], call["ww"])
-                 for levels in call["map_levels"])
+        by = touched_bytes(call["map_levels"], call["lvl_idx"], call["r0"],
+                           call["c0"], call["wh"], call["ww"])
         by += nbytes(call["lvl_idx"], call["r0"], call["c0"], out)
         ops = 2 * out.numel()                       # decode multiply + add
     elif name == "extract_level_windows":
@@ -249,17 +262,24 @@ def library_call(name: str, call: dict):
     only: the carried z, the shift to the exclusive scan and the factor
     are left out; m is formed outside the timed call). K4: F.grid_sample
     over the decoded windows (its bilinear half only; the windows are cut
-    outside the timed call). K5, for a
-    launch with a single level: one advanced-indexing gather of the raw
-    windows (the decode is left out); a launch that picks among several
-    levels has no single call."""
+    outside the timed call). K1 and K5, for a launch of one map with a
+    single level: one advanced-indexing gather of the raw windows (the
+    decode left out; K1's group layout is the gather's own); a launch
+    that picks among several levels has no single call."""
     import torch
     import torch.nn.functional as F
 
     from moonrtx_tpu_torch.ops import extract
 
-    if name == "extract_level_windows" and len(call["levels"]) == 1:
-        lvl = call["levels"][0]
+    one_level = None
+    if name == "extract_level_windows" and isinstance(
+            call["levels"][0], torch.Tensor) and len(call["levels"]) == 1:
+        one_level = call["levels"][0]
+    if name == "extract_group_windows" and len(call["map_levels"]) == 1 \
+            and len(call["map_levels"][0]) == 1:
+        one_level = call["map_levels"][0][0]
+    if one_level is not None:
+        lvl = one_level
         rows = (call["r0"].long()[:, None]
                 + torch.arange(call["wh"], device=lvl.device))[:, :, None]
         cols = (call["c0"].long()[:, None]
@@ -287,8 +307,14 @@ def compare(name: str, call: dict, got, ref) -> list:
     plain version, the main output first; fails if an error exceeds its
     tolerance."""
     if name in ("extract_group_windows", "extract_level_windows"):
+        import torch
+
         err = float((got.float() - ref.float()).abs().max())
         tol = 0.0                                   # bit-exact
+        bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+        if not torch.equal(got.view(bits), ref.view(bits)):
+            fail(f"{name}: not bit-equal to its plain version (the sign "
+                 "of a zero, or a NaN's bits)")
     elif name == "resample_group_windows":
         # bf16 residual budget: the window mean is summed in another
         # order, which can move one bf16 rounding of a residual
@@ -501,6 +527,20 @@ def main(argv=None) -> int:
     print(f"# extract_level_windows on the {int(sel.sum())} level-0 height "
           f"blocks alone: kernel {k5_one:.4f} ms, one advanced-indexing "
           f"gather (no decode) {lib_one:.4f} ms", flush=True)
+    # the same for K1's height launch (whole groups of blocks)
+    hcall = next(c for n, c in calls if n == "extract_group_windows")
+    sel = torch.nonzero(hcall["lvl_idx"] == 0)[:, 0]
+    sel = sel[:sel.numel() // hcall["group"] * hcall["group"]]
+    one = dict(hcall, map_levels=(hcall["map_levels"][0][:1],),
+               lvl_idx=hcall["lvl_idx"][sel].contiguous(),
+               r0=hcall["r0"][sel].contiguous(),
+               c0=hcall["c0"][sel].contiguous())
+    k1_one, _ = device_ms(lambda: extract.extract_group_windows(**one),
+                          KERNELS["extract_group_windows"]["kernel"], 30)
+    lib_one = cuda_ms(library_call("extract_group_windows", one), 20)
+    print(f"# extract_group_windows on {sel.numel()} level-0 height blocks "
+          f"alone: kernel {k1_one:.4f} ms, one advanced-indexing gather (no "
+          f"decode) {lib_one:.4f} ms", flush=True)
 
     # ---- 4. each kernel against its plain version, and its times -------
     plain = {"extract_group_windows": extract.extract_group_windows_plain,
@@ -525,6 +565,7 @@ def main(argv=None) -> int:
             weight = 1
         picked[name].append((call, weight))
     report = []
+    per_call = {}   # name -> device ms of all its replayed launches
     for name, items in picked.items():
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, lib=0.0)
         has_lib = True
@@ -560,12 +601,16 @@ def main(argv=None) -> int:
                       f"{reread / 1e6:.1f} MB of windows in all, "
                       f"{reread / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
                       f"device-memory rate", flush=True)
-            if name == "extract_level_windows":
-                lv = call["levels"][0]
-                print(f"#   extract_level_windows launch: {lv.dtype} levels, "
-                      f"element stride {lv.stride(1)}, out "
+            if name in ("extract_group_windows", "extract_level_windows"):
+                maps = call.get("map_levels", call.get("levels"))
+                if isinstance(maps[0], torch.Tensor):
+                    maps = (maps,)
+                lv = maps[0][0]
+                print(f"#   {name} launch: {len(maps)} map(s) of "
+                      f"{lv.dtype} levels {tuple(lv.shape)}, out {got.dtype} "
                       f"{tuple(got.shape)}: {k_ms:.4f} ms, bound {b_ms:.4f} "
-                      f"ms, plain {p_ms:.3f} ms", flush=True)
+                      f"ms ({b_ms / k_ms:.0%} of it reached), plain "
+                      f"{p_ms:.3f} ms", flush=True)
             tot["ms"] += weight * k_ms
             tot["plain_ms"] += weight * p_ms
             tot["bound_ms"] += weight * b_ms
@@ -586,6 +631,7 @@ def main(argv=None) -> int:
                       else "bytes"),
             library_ms=(tot["lib"] / n) if has_lib else None)
         report.append(entry)
+        per_call[name] = tot["ms"]
         err_text = ", ".join(f"{what} {err:.3g} (tolerance {tol:.3g})"
                              for what, (err, tol) in errs.items())
         print(f"# {name}: max |err| {max_err:.3g}; nearest its tolerance: "
@@ -599,10 +645,16 @@ def main(argv=None) -> int:
                 f"{kernel} {ms / n:.4f} ms" for kernel, ms in passes.items()),
                 flush=True)
     for entry in report:
-        if entry["name"] in EARLIER_MS:
+        if entry["name"] in PER_POSE:
+            now, was = per_call[entry["name"]], EARLIER_MS[entry["name"]]
+            print(f"# {entry['name']}: {now:.4f} ms per pose in "
+                  f"{entry['launches']} launches, the earlier design took "
+                  f"{was:.4f} ms in six (PERF.md): {was / now:.2f}x",
+                  flush=True)
+        elif entry["name"] in EARLIER_MS:
             was = EARLIER_MS[entry["name"]]
             print(f"# {entry['name']}: {entry['ms']:.4f} ms per launch, the "
-                  f"first design took {was:.4f} ms (PERF.md): "
+                  f"earlier design took {was:.4f} ms (PERF.md): "
                   f"{was / entry['ms']:.2f}x", flush=True)
 
     # ---- 4b. inputs that a wrong split of the work gets wrong ------------
@@ -650,6 +702,31 @@ def main(argv=None) -> int:
         print(f"# resample_group_windows on hard inputs, {dtype}: "
               f"{len(families)} families, nearest its tolerance: max |err| "
               f"{worst[0]:.3g} (tolerance {worst[1]:.3g})", flush=True)
+    for dtype in hard_cases.EXTRACT_DTYPES:
+        worst = {"extract_group_windows": 0.0, "extract_level_windows": 0.0}
+        families = (hard_cases.EXTRACT_FAMILIES
+                    + hard_cases.EXTRACT_GUARD_FAMILIES)
+        for family in families:
+            case = hard_cases.extract_hard_case(family, dtype, seed=14)
+            k1, k5 = hard_cases.extract_case_calls(
+                case, on_card, lambda t: t.to(torch.bfloat16))
+            if k1 is not None:
+                k1["out_dtype"] = (torch.bfloat16 if dtype == "bfloat16"
+                                   else torch.float32)
+            for name, call in (("extract_group_windows", k1),
+                               ("extract_level_windows", k5)):
+                if call is None:
+                    continue
+                got = wrapper[name](**call)
+                ref = plain[name](**call)
+                torch.cuda.synchronize()
+                worst[name] = max(worst[name],
+                                  compare(name, call, got, ref)[0][1])
+        print(f"# extraction on hard inputs, {dtype}: {len(families)} "
+              f"families, bit-equal to the plain versions; max |err| K1 "
+              f"{worst['extract_group_windows']:.3g}, K5 "
+              f"{worst['extract_level_windows']:.3g} (tolerance 0)",
+              flush=True)
 
     # ---- 5. a small input: kernels against the plain path on the CPU ----
     from moonrtx_tpu_torch.data.synth import synthesize_moon

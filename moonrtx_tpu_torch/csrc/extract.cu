@@ -1,6 +1,6 @@
 // Per-block window extraction with affine decode: K1 (grouped, multi-map,
-// packed march layout) and K5 (one window per block, any block count,
-// strided levels).
+// packed march layout, edges clamp) and K5 (one window per block, any
+// block count, texels outside the level read as raw 0).
 //
 // K1 replaces the TPU kernel moonrtx_tpu/ops/extract.py::
 // extract_group_windows_tpu (_make_group_kernel); K5 replaces
@@ -9,127 +9,238 @@
 // into VMEM and recompact it with one-hot MXU contractions because the
 // TPU has no gather hardware; none of that comes across.
 //
-// Bound on Hopper: memory. Each output texel is one load, one multiply,
-// one add and one store; at 1080p the pose windows read ~0.1-0.2 GB and
-// write ~0.2-0.5 GB against 3.35 TB/s. Design: one thread block per
-// window (K1: per (block, map)) copies the block's (wh, ww) window row by
-// row with neighbouring threads on neighbouring columns, so loads and
-// stores coalesce; nothing is staged, nothing is read twice. The decode is
-// float(raw) * scale, then + offset, each separately rounded
-// (__fmul_rn/__fadd_rn), which keeps the result bit-exact against the
-// plain PyTorch version.
+// Bound on Hopper: memory, the windows' writes above all (a 1080p pose
+// writes 166 MB of f32 height windows, 498 MB of albedo, 199 MB of
+// shadow|bounce; the distinct texels read are a tenth of that). The first
+// design (a thread per texel and step) was bound by instruction issue
+// instead: a run-time division per texel, 64-bit index and clamp
+// arithmetic, a switch on the source type and one on the output type,
+// one 1-4 byte load and one 2-4 byte store each. Design:
+//  - templated on the source type, the output type, the vector width and
+//    the edge rule: nothing in the row loop switches at run time;
+//  - one thread block per window; thread (x, y, z) owns the 16-byte
+//    output chunk x of segment y (a map, or a map's channel) in rows
+//    z, z + blockDim.z, ... (about four rows a thread): no division in the
+//    loop. Its V source columns, clamped or flagged as inside the level,
+//    become 32-bit offsets once; each row costs a 64-bit row base, V
+//    loads (adjacent ones off one address where all V columns lie inside
+//    the level), V decodes and one 16-byte store, neighbouring threads on
+//    neighbouring chunks;
+//  - a map may hold its channels interleaved, an (H, W, C) level read as
+//    whole texels in place. K1 writes channel c of map m as segment
+//    m*C + c (the march kernel's channel-blocked columns), each thread
+//    reading its texels' channel at a stride; K5 keeps the source's own
+//    order, so its wrapper hands the level over as an (H, W*C) row of
+//    bytes and the window as ww*C columns from c0*C: a plain copy with
+//    conversion. Several maps (shadow|bounce) share one launch, side by
+//    side in the output row;
+//  - the decode is float(raw) * scale, then + offset, each separately
+//    rounded (__fmul_rn/__fadd_rn, -fmad=false), identity steps skipped
+//    (-0.0 stays -0.0): bit-exact against the plain PyTorch version.
+// Loads stay scalar: a window row starts at any byte phase of its level,
+// and one vector load where a thread's run happens to sit on its
+// alignment gained on no launch but the bf16 one (measured); with the
+// instructions above per texel the loop no longer limits.
+#include <string.h>
+#include <type_traits>
+
 #include "common.cuh"
 
 #define MAX_MAPS 4
 #define MAX_LEVELS 4
+#define MAX_BLOCK 1024
 
 struct ExtractArgs {
   const void* tex[MAX_MAPS * MAX_LEVELS];   // map-major: [m * n_levels + k]
   long long rows[MAX_MAPS * MAX_LEVELS];
-  long long cols[MAX_MAPS * MAX_LEVELS];    // also the row stride
+  long long cols[MAX_MAPS * MAX_LEVELS];
+  long long row_stride[MAX_MAPS * MAX_LEVELS];    // elements
+  long long col_stride[MAX_MAPS * MAX_LEVELS];    // elements
+  long long chan_stride[MAX_MAPS * MAX_LEVELS];   // elements
   float scale[MAX_MAPS];
   float offset[MAX_MAPS];
   const int* lvl;
   const int* r0;
   const int* c0;
   void* out;
-  int nblk, n_maps, n_levels, wh, ww, group, src_dtype, out_bf16;
+  // n_chan: channels per map, each its own output segment (K1); cmul
+  // scales c0 (K5's interleaved levels, handed over as rows of W*C)
+  int nblk, n_maps, n_chan, n_levels, wh, ww, cmul, src_dtype, out_bf16,
+      rows_per_thread;
 };
 
-__global__ void extract_group_kernel(const ExtractArgs a) {
+template <typename T>
+__device__ __forceinline__ float to_f32(T v) { return (float)v; }
+template <>
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// V decoded values to V consecutive outputs (16 bytes when V > 1)
+template <typename Tout, int V>
+__device__ __forceinline__ void store(Tout* dst, const float (&v)[V]) {
+  if constexpr (V == 1) {
+    if constexpr (std::is_same<Tout, float>::value) *dst = v[0];
+    else *dst = __float2bfloat16_rn(v[0]);
+  } else if constexpr (std::is_same<Tout, float>::value) {
+    static_assert(V == 4, "16-byte f32 chunks");
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    static_assert(V == 8, "16-byte bf16 chunks");
+    __nv_bfloat162 h[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    uint4 u;
+    memcpy(&u, h, sizeof(u));
+    *reinterpret_cast<uint4*>(dst) = u;
+  }
+}
+
+template <typename Tin, typename Tout, int V, bool ZERO>
+__device__ __forceinline__ void extract_window(const ExtractArgs& a) {
   const int b = blockIdx.x;
-  const int m = blockIdx.y;
+  const int x = threadIdx.x, y = threadIdx.y;
   int k = a.lvl[b];
   k = k < 0 ? 0 : (k >= a.n_levels ? a.n_levels - 1 : k);
+  const int m = a.n_chan == 1 ? y : y / a.n_chan;
+  const int ch = y - m * a.n_chan;
   const int slot = m * a.n_levels + k;
-  const void* tex = a.tex[slot];
-  const long long H = a.rows[slot], W = a.cols[slot];
-  const long long r0 = a.r0[b], c0 = a.c0[b];
+  const Tin* tex = static_cast<const Tin*>(a.tex[slot]);
+  const long long H = a.rows[slot];
+  const int W = (int)a.cols[slot];   // the wrapper keeps offsets in int32
+  const long long rs = a.row_stride[slot];
+  const int cs = (int)a.col_stride[slot];
+  const int chs = ch * (int)a.chan_stride[slot];
   const float scale = a.scale[m], offset = a.offset[m];
-  const int g = b % a.group;
-  const long long out_w = (long long)a.n_maps * a.ww;
-  const long long out_row0 = (long long)(b / a.group) * a.group * a.wh
-                             + (long long)g * a.wh;
-  const int n = a.wh * a.ww;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int r = e / a.ww, c = e - r * a.ww;
-    // callers pre-clamp origins; the clamp only keeps a bad origin from
-    // reading outside the level
-    long long rr = r0 + r, cc = c0 + c;
-    rr = rr < 0 ? 0 : (rr >= H ? H - 1 : rr);
-    cc = cc < 0 ? 0 : (cc >= W ? W - 1 : cc);
-    float v = mrtx_load_f32(tex, rr * W + cc, a.src_dtype);
-    if (scale != 1.0f) v = __fmul_rn(v, scale);
-    if (offset != 0.0f) v = __fadd_rn(v, offset);
-    const long long o = (out_row0 + r) * out_w + (long long)m * a.ww + c;
-    if (a.out_bf16)
-      ((__nv_bfloat16*)a.out)[o] = __float2bfloat16_rn(v);
-    else
-      ((float*)a.out)[o] = v;
+  const int r0 = a.r0[b];
+  const int cfirst = a.c0[b] * a.cmul + x * V;
+  // this thread's columns: offsets inside a row (clamped into the level
+  // for K1; 0 for a column outside it for K5, never read) and which lie
+  // inside the level
+  int off[V];
+  unsigned inside = 0;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    int cc = cfirst + i;
+    const bool in = cc >= 0 && cc < W;
+    inside |= (unsigned)in << i;
+    if constexpr (ZERO) cc = in ? cc : 0;
+    else cc = cc < 0 ? 0 : (cc >= W ? W - 1 : cc);
+    off[i] = cc * cs + chs;
   }
+  // all columns inside and adjacent: V consecutive texels from off[0]
+  const bool run = inside == (1u << V) - 1u && cs == 1;
+  const int row_len = a.n_maps * a.n_chan * a.ww;
+  Tout* dst = static_cast<Tout*>(a.out) + (long long)b * a.wh * row_len
+              + y * a.ww + x * V;
+  for (int r = threadIdx.z; r < a.wh; r += blockDim.z) {
+    long long rr = (long long)r0 + r;
+    bool row_in = true;
+    if constexpr (ZERO) {
+      row_in = rr >= 0 && rr < H;
+      if (!row_in) rr = 0;
+    } else {
+      rr = rr < 0 ? 0 : (rr >= H ? H - 1 : rr);
+    }
+    const Tin* src = tex + rr * rs;
+    float v[V];
+    if (run && row_in) {
+      const Tin* p = src + off[0];
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] = to_f32(p[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        v[i] = (row_in && (!ZERO || ((inside >> i) & 1u)))
+                   ? to_f32(src[off[i]]) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (scale != 1.0f) v[i] = __fmul_rn(v[i], scale);
+      if (offset != 0.0f) v[i] = __fadd_rn(v[i], offset);
+    }
+    store<Tout, V>(dst + r * row_len, v);
+  }
+}
+
+// K1: edges clamp into the level; f32 or bf16 out
+template <typename Tin, typename Tout, int V>
+__global__ void extract_group_kernel(const __grid_constant__ ExtractArgs a) {
+  extract_window<Tin, Tout, V, false>(a);
+}
+
+// K5: texels outside the level are raw 0; f32 out
+template <typename Tin, int V>
+__global__ void extract_level_kernel(const __grid_constant__ ExtractArgs a) {
+  extract_window<Tin, float, V, true>(a);
+}
+
+// Threads (ww/V, segments, rows): each thread walks a.rows_per_thread
+// rows of the window (its set-up paid once for them), or as close to it
+// as the 1,024 threads of a block allow, all threads the same number.
+static int block_of(const ExtractArgs& a, int v, dim3* block) {
+  const int x = a.ww / v, segs = a.n_maps * a.n_chan;
+  if (x * segs > MAX_BLOCK) return (int)cudaErrorInvalidValue;
+  const int cap = MAX_BLOCK / (x * segs) < 64 ? MAX_BLOCK / (x * segs) : 64;
+  int rz = (a.wh + a.rows_per_thread - 1) / a.rows_per_thread;
+  rz = rz > cap ? cap : rz;
+  const int iters = (a.wh + rz - 1) / rz;
+  *block = dim3(x, segs, (a.wh + iters - 1) / iters);
+  return 0;
+}
+
+template <typename Tin, typename Tout, bool ZERO>
+static int launch(const ExtractArgs& a, cudaStream_t stream) {
+  constexpr int VV = 16 / (int)sizeof(Tout);
+  const bool vec = a.ww % VV == 0;
+  dim3 block;
+  const int err = block_of(a, vec ? VV : 1, &block);
+  if (err) return err;
+  if constexpr (ZERO) {
+    if (vec) extract_level_kernel<Tin, VV><<<a.nblk, block, 0, stream>>>(a);
+    else extract_level_kernel<Tin, 1><<<a.nblk, block, 0, stream>>>(a);
+  } else {
+    if (vec)
+      extract_group_kernel<Tin, Tout, VV><<<a.nblk, block, 0, stream>>>(a);
+    else
+      extract_group_kernel<Tin, Tout, 1><<<a.nblk, block, 0, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename Tout, bool ZERO>
+static int dispatch(const ExtractArgs& a, cudaStream_t stream) {
+  switch (a.src_dtype) {
+    case MRTX_F32: return launch<float, Tout, ZERO>(a, stream);
+    case MRTX_I16: return launch<int16_t, Tout, ZERO>(a, stream);
+    case MRTX_U8: return launch<uint8_t, Tout, ZERO>(a, stream);
+    case MRTX_BF16:
+      if constexpr (!ZERO) return launch<__nv_bfloat16, Tout, ZERO>(a, stream);
+      [[fallthrough]];
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+static bool bad_shape(const ExtractArgs* a) {
+  return a->wh <= 0 || a->ww <= 0 || a->n_maps < 1 || a->n_maps > MAX_MAPS
+         || a->n_levels < 1 || a->n_levels > MAX_LEVELS || a->n_chan < 1
+         || a->n_maps * a->n_chan > MAX_BLOCK || a->rows_per_thread < 1;
 }
 
 MRTX_EXPORT int mrtx_extract_group_windows(const ExtractArgs* a,
                                            cudaStream_t stream) {
+  if (bad_shape(a)) return (int)cudaErrorInvalidValue;
   if (a->nblk == 0) return 0;
-  dim3 grid(a->nblk, a->n_maps);
-  extract_group_kernel<<<grid, 256, 0, stream>>>(*a);
-  return (int)cudaGetLastError();
+  return a->out_bf16 ? dispatch<__nv_bfloat16, false>(*a, stream)
+                     : dispatch<float, false>(*a, stream);
 }
 
-// ---- K5: one window per block from the block's own level -----------------
-//
-// out[b] = levels[lvl[b]][r0[b]:r0[b]+wh, c0[b]:c0[b]+ww], decoded, as
-// (nblk, wh, ww) f32. A level is addressed through a row stride and an
-// element stride (in elements), so one channel plane of an (H, W, 3)
-// uint8 level is read in place; such a plane cannot coalesce (three
-// bytes between neighbouring texels), which is the map's layout. Texels
-// outside the level (a level smaller than the window, or an origin the
-// caller did not clamp) read as raw 0, as the zero padding of the TPU
-// kernel's levels gives them; no address outside the level is formed.
-
-struct LevelArgs {
-  const void* tex[MAX_LEVELS];
-  long long rows[MAX_LEVELS];
-  long long cols[MAX_LEVELS];
-  long long row_stride[MAX_LEVELS];    // elements between rows
-  long long elem_stride[MAX_LEVELS];   // elements between columns
-  const int* lvl;
-  const int* r0;
-  const int* c0;
-  float* out;
-  float scale, offset;
-  int nblk, n_levels, wh, ww, src_dtype;
-};
-
-__global__ void extract_level_kernel(const LevelArgs a) {
-  const int b = blockIdx.x;
-  int k = a.lvl[b];
-  k = k < 0 ? 0 : (k >= a.n_levels ? a.n_levels - 1 : k);
-  const void* tex = a.tex[k];
-  const long long H = a.rows[k], W = a.cols[k];
-  const long long rs = a.row_stride[k], es = a.elem_stride[k];
-  const long long r0 = a.r0[b], c0 = a.c0[b];
-  const float scale = a.scale, offset = a.offset;
-  const int n = a.wh * a.ww;
-  float* out = a.out + (long long)b * n;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int r = e / a.ww, c = e - r * a.ww;
-    const long long rr = r0 + r, cc = c0 + c;
-    float v = 0.0f;
-    if (rr >= 0 && rr < H && cc >= 0 && cc < W)
-      v = mrtx_load_f32(tex, rr * rs + cc * es, a.src_dtype);
-    if (scale != 1.0f) v = __fmul_rn(v, scale);
-    if (offset != 0.0f) v = __fadd_rn(v, offset);
-    out[e] = v;
-  }
-}
-
-MRTX_EXPORT int mrtx_extract_level_windows(const LevelArgs* a,
+MRTX_EXPORT int mrtx_extract_level_windows(const ExtractArgs* a,
                                            cudaStream_t stream) {
+  if (bad_shape(a) || a->out_bf16) return (int)cudaErrorInvalidValue;
   if (a->nblk == 0) return 0;
-  extract_level_kernel<<<a->nblk, 256, 0, stream>>>(*a);
-  return (int)cudaGetLastError();
+  return dispatch<float, true>(*a, stream);
 }
 
 MRTX_ERROR_STRING_FN

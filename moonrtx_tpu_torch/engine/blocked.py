@@ -10,8 +10,8 @@ Two backends share the windows:
 
 * "blocked": march, shadow lookup and shading in plain torch ops on f32
   windows, one accumulation sample per call (render_frame_blocked). Its
-  windows are cut one per block by K5 (ops.extract.extract_level_windows):
-  heights, the three albedo planes, shadow and bounce.
+  windows are cut one per block by K5 (ops.extract.extract_level_windows)
+  in three launches: heights, albedo (whole texels), shadow|bounce.
 * "pallas": GROUP=8 horizontally adjacent blocks (an 8x128-pixel strip)
   make one strip of the march kernel (K2), fed from windows cut by K1
   straight into its packed layout, all samples in one burst.
@@ -308,21 +308,18 @@ def _clamped(levels, r0, c0, wh: int, ww: int, qi):
 
 def _pick_level_windows(levels, qexp, r0, c0, wh: int, ww: int,
                         scale: float = 1.0, offset: float = 0.0):
-    """A window per block from levels[qexp[blk]] (q = 2^qexp), cut by K5;
-    origins are in the block's own stride-level coordinates. Levels may be
-    stored quantized (int16/uint8, value = raw*scale+offset); windows come
-    back decoded f32. 3-D maps go plane by plane, each plane read in place
-    through its strides, stacked on the last axis."""
-    qi = torch.clamp(qexp, 0, len(levels) - 1)
-    rk, ck = _clamped(levels, r0, c0, wh, ww, qi)
-    if levels[0].ndim == 3:
-        return torch.stack(
-            [extract_ops.extract_level_windows(
-                tuple(lvl[:, :, ch] for lvl in levels), qi, rk, ck, wh, ww,
-                scale=scale, offset=offset)
-             for ch in range(levels[0].shape[2])], dim=-1)
+    """A window per block from levels[qexp[blk]] (q = 2^qexp), cut by K5
+    in one launch; origins are in the block's own stride-level
+    coordinates. Levels may be stored quantized (int16/uint8, value =
+    raw*scale+offset); windows come back decoded f32. A 3-D map comes
+    back (nblk, wh, ww, C), its texels read whole; ``levels`` may also be
+    a sequence of pyramids with equal level shapes (shadow and bounce),
+    cut side by side into (nblk, wh, n_maps*ww)."""
+    first = levels if isinstance(levels[0], torch.Tensor) else levels[0]
+    qi = torch.clamp(qexp, 0, len(first) - 1)
+    rk, ck = _clamped(first, r0, c0, wh, ww, qi)
     return extract_ops.extract_level_windows(
-        tuple(levels), qi, rk, ck, wh, ww, scale=scale, offset=offset)
+        levels, qi, rk, ck, wh, ww, scale=scale, offset=offset)
 
 
 def extract_window_cache(mips, albedo_mips, org: WindowOrigins,
@@ -339,7 +336,7 @@ def extract_window_cache(mips, albedo_mips, org: WindowOrigins,
     grouped (the march-kernel path): K1 cuts both, the albedo windows
     straight into the march kernel's packed channel-blocked layout. Not
     grouped (the blocked backend): K5 cuts one window per block, the
-    albedo plane by plane into (nblk, AWIN_H, AWIN_W, 3)."""
+    albedo as whole texels into (nblk, AWIN_H, AWIN_W, 3)."""
     qexp = torch.round(torch.log2(org.q)).to(torch.int32)
     if not grouped:
         hwin = _pick_level_windows(mips, qexp, org.r0, org.c0, WIN_H, WIN_W,
@@ -357,11 +354,9 @@ def extract_window_cache(mips, albedo_mips, org: WindowOrigins,
     hwin = hwin.reshape(-1, WIN_H, WIN_W)
     aqi = torch.clamp(qexp, 0, len(albedo_mips) - 1)
     ark, ack = _clamped(albedo_mips, org.ar0, org.ac0, AWIN_H, AWIN_W, aqi)
-    planes = tuple(tuple(lvl[:, :, ch] for lvl in albedo_mips)
-                   for ch in range(3))
     awin = extract_ops.extract_group_windows(
-        planes, aqi, ark, ack, AWIN_H, AWIN_W, scales=(a_scale,) * 3,
-        group=GROUP)
+        (tuple(albedo_mips),), aqi, ark, ack, AWIN_H, AWIN_W,
+        scales=(a_scale,), group=GROUP)
     # Mean-center each height window: bilinear weights sum to 1, so
     # sample(win) == sample(win - mean) + mean, and the centered residuals
     # survive the march's bf16 window rounding.
@@ -385,7 +380,8 @@ def build_shadow_windows(shadow_map, smap_params, geom: RayGeom,
 
     grouped (the march-kernel path): K1 cuts both maps into the march
     kernel's bf16 shadow|bounce layout. Not grouped (the blocked
-    backend): K5 cuts f32 windows, SWIN_W columns without a bounce map."""
+    backend): K5 cuts both into f32 shadow|bounce windows in one launch,
+    SWIN_W columns without a bounce map."""
     n_phi = shadow_map.shape[1] - shadow_scan.PHI_PAD
     rcs = [shadow_scan.rowcol_of_points(smap_params, n_phi, p)
            for p in _chord_points(geom)]
@@ -415,14 +411,12 @@ def build_shadow_windows(shadow_map, smap_params, geom: RayGeom,
 
     if not grouped:
         half = _decimate(shadow_map)
-        swin = _pick_level_windows((shadow_map, half, _decimate(half)),
-                                   sqexp, sr0, sc0, SWIN_H, SWIN_W)
+        maps = [(shadow_map, half, _decimate(half))]
         if bounce_map is not None:
             bmap = _extend(bounce_map)
             bhalf = _decimate(bmap)
-            bwin = _pick_level_windows((bmap, bhalf, _decimate(bhalf)),
-                                       sqexp, sr0, sc0, SWIN_H, SWIN_W)
-            swin = torch.cat([swin, bwin], dim=2)
+            maps.append((bmap, bhalf, _decimate(bhalf)))
+        swin = _pick_level_windows(maps, sqexp, sr0, sc0, SWIN_H, SWIN_W)
         return ShadowWindows(swin=swin, sr0=sr0, sc0=sc0, sq=sq)
 
     # grouped paired extraction straight to the bf16 shadow|bounce layout

@@ -8,7 +8,10 @@ int16, uint8 and bf16 sources; K5 bit-exact in its selection for f32,
 int16 and uint8 and within 1e-6 after the decode (the reference's XLA
 fuses the multiply and the add into one rounding, the port rounds twice);
 K4 within 4e-3 of the residual scale (the bf16 residual budget of
-tests/test_extract.py).
+tests/test_extract.py). On the inputs of moonrtx_tpu_torch/hard_cases.py
+the one-launch contracts of K1 and K5 ((H, W, 3) levels whole, several
+maps side by side) give bit for bit what the per-plane calls with
+``torch.stack`` / ``torch.cat`` gave.
 """
 
 import jax.numpy as jnp
@@ -19,8 +22,11 @@ import torch
 from moonrtx_tpu.ops import extract as jx
 from moonrtx_tpu_torch.ops import extract as tx
 from moonrtx_tpu_torch.ops import sampler as tsampler
-from torch_parity import (RESAMPLE_DTYPES, RESAMPLE_FAMILIES,
-                          resample_case_with, resample_hard_case)
+from torch_parity import (EXTRACT_DTYPES, EXTRACT_FAMILIES,
+                          EXTRACT_GUARD_FAMILIES, RESAMPLE_DTYPES,
+                          RESAMPLE_FAMILIES, extract_case_calls,
+                          extract_hard_case, resample_case_with,
+                          resample_hard_case)
 
 
 def _maps(rng, dtype, shapes, n_maps):
@@ -199,8 +205,13 @@ def test_extract_level_windows_rejects_bad_inputs():
                                  z, z, z, 8, 8)
     with pytest.raises(ValueError):
         tx.extract_level_windows((torch.zeros(64, 64),), z.long(), z, z, 8, 8)
+    # (H, W, C) levels are taken whole; a 4-D level or levels of mixed
+    # texel shapes are not
     with pytest.raises(ValueError):
-        tx.extract_level_windows((torch.zeros(64, 64, 3),), z, z, z, 8, 8)
+        tx.extract_level_windows((torch.zeros(64, 64, 3, 2),), z, z, z, 8, 8)
+    with pytest.raises(ValueError):
+        tx.extract_level_windows(
+            (torch.zeros(64, 64, 3), torch.zeros(32, 32)), z, z, z, 8, 8)
 
 
 def test_extract_rejects_ragged_groups():
@@ -263,3 +274,117 @@ def test_resample_group_windows_hard_cases(family, dtype):
     span = max(float(d.max() - d.min()) for d in dec)
     assert got.shape == ref.shape == case["wy"].shape
     assert np.abs(got - ref).max() <= 4e-3 * span
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _plane_maps(levels):
+    """An (H, W, C) pyramid as C pyramids of 2-D planes (strided views);
+    a 2-D pyramid as itself."""
+    if levels[0].ndim == 2:
+        return [list(levels)]
+    return [[lvl[:, :, ch] for lvl in levels]
+            for ch in range(levels[0].shape[2])]
+
+
+def _old_level_windows(maps, call):
+    """K5 as the blocked backend composed it before one launch did it
+    all: one call per map and channel plane, torch.stack over the
+    channels, torch.cat over the maps."""
+    idx = {k: call[k] for k in ("lvl_idx", "r0", "c0", "wh", "ww",
+                                "scale", "offset")}
+    per_map = []
+    for levels in maps:
+        planes = [tx.extract_level_windows(p, **idx)
+                  for p in _plane_maps(levels)]
+        per_map.append(planes[0] if levels[0].ndim == 2
+                       else torch.stack(planes, dim=-1))
+    return torch.cat(per_map, dim=2)
+
+
+@pytest.mark.parametrize("dtype", EXTRACT_DTYPES)
+@pytest.mark.parametrize("family",
+                         EXTRACT_FAMILIES + EXTRACT_GUARD_FAMILIES)
+def test_extract_one_launch_contracts_match_old_compositions(family, dtype):
+    """K1 with an (H, W, 3) map gives what three plane maps gave; K5 with
+    (H, W, 3) levels and with a shadow|bounce pair gives what per-plane
+    calls with stack and cat gave, bit for bit (-0.0 kept), on every
+    extraction hard case."""
+    case = extract_hard_case(family, dtype, seed=8)
+    k1, k5 = extract_case_calls(case, torch.from_numpy,
+                                lambda t: t.to(torch.bfloat16))
+    if k1 is not None:
+        out_dtype = (torch.bfloat16 if dtype == "bfloat16"
+                     else torch.float32)
+        got = tx.extract_group_windows(**k1, out_dtype=out_dtype)
+        planes = [p for levels in k1["map_levels"]
+                  for p in _plane_maps(levels)]
+        n = len(planes)
+        old = tx.extract_group_windows(
+            planes, k1["lvl_idx"], k1["r0"], k1["c0"], k1["wh"], k1["ww"],
+            scales=(case["scale"],) * n, offsets=(case["offset"],) * n,
+            out_dtype=out_dtype)
+        assert got.shape == old.shape == (
+            k1["r0"].shape[0] // 8, 8 * k1["wh"], n * k1["ww"])
+        assert torch.equal(_bits(got), _bits(old))
+    if k5 is not None:
+        maps = ([k5["levels"]] if isinstance(k5["levels"][0], torch.Tensor)
+                else k5["levels"])
+        got = tx.extract_level_windows(**k5)
+        old = _old_level_windows(maps, k5)
+        assert got.shape == old.shape
+        assert torch.equal(_bits(got), _bits(old))
+        if dtype == "float32" and case["scale"] == 1.0:
+            assert bool((torch.signbit(got) & (got == 0)).any())
+
+
+@pytest.mark.parametrize("family,dtype", [
+    ("phases", d) for d in EXTRACT_DTYPES] + [
+    ("edges", "uint8x3"), ("small_levels", "int16"), ("pair", "float32"),
+    ("prime_blocks", "uint8")])
+def test_extract_hard_cases_match_reference(family, dtype):
+    """The port's plain K1 and K5 against extract_group_windows_tpu and
+    extract_level_windows_tpu in interpret mode, the reference fed plane
+    by plane and map by map as its blocked pipeline feeds it; selection
+    bit-exact, the decode within 1e-6 (the reference's XLA fuses it). K1
+    is not held on levels smaller than its window: there the reference
+    reads its zero padding and the port clamps (both outside the
+    contract)."""
+    case = extract_hard_case(family, dtype, seed=9)
+    bf16 = dtype == "bfloat16"
+    k1, k5 = extract_case_calls(case, torch.from_numpy,
+                                lambda t: t.to(torch.bfloat16))
+    j_planes = [[jnp.asarray(a[:, :, ch] if a.ndim == 3 else a,
+                             jnp.bfloat16 if bf16 else None)
+                 for a in levels]
+                for levels in case["maps"]
+                for ch in range(case["maps"][0][0].shape[2]
+                                if case["maps"][0][0].ndim == 3 else 1)]
+    idx = [jnp.asarray(case[k]) for k in ("lvl_idx", "r0", "c0")]
+    tol = 0.0 if case["scale"] == 1.0 and case["offset"] == 0.0 else 1e-6
+    if k1 is not None and family != "small_levels":
+        n = len(j_planes)
+        ref = jx.extract_group_windows_tpu(
+            tuple(tuple(p) for p in j_planes), *idx, case["wh"], case["ww"],
+            scales=(case["scale"],) * n, offsets=(case["offset"],) * n,
+            group=8, out_dtype=jnp.bfloat16 if bf16 else jnp.float32,
+            interpret=True)
+        got = tx.extract_group_windows(
+            **k1, out_dtype=torch.bfloat16 if bf16 else torch.float32)
+        ref = np.asarray(ref.astype(jnp.float32))
+        assert got.shape == ref.shape
+        assert np.abs(got.float().numpy() - ref).max() <= tol
+    if k5 is not None:
+        per = [np.asarray(jx.extract_level_windows_tpu(
+            tuple(p), *idx, case["wh"], case["ww"], scale=case["scale"],
+            offset=case["offset"], interpret=True)) for p in j_planes]
+        nch = len(j_planes) // len(case["maps"])
+        ref = np.concatenate(
+            [per[m * nch] if nch == 1
+             else np.stack(per[m * nch:(m + 1) * nch], axis=-1)
+             for m in range(len(case["maps"]))], axis=2)
+        got = tx.extract_level_windows(**k5).numpy()
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= tol

@@ -11,7 +11,8 @@ order, which can move one bf16 rounding); the prefix scan (K3) equals
 its plain version bit for bit on the card (folding chunk aggregates in
 row order gives the sequential walk's carry at every row) and is within
 the atan2 polynomial's 1e-4 of the plain version on the CPU; both also on
-the inputs of moonrtx_tpu_torch/hard_cases.py; the march (K2) agrees
+the inputs of moonrtx_tpu_torch/hard_cases.py (extraction bit for bit,
+-0.0 included); the march (K2) agrees
 on >= 99.9% of hit flags, within 2e-2 on rgb and within 5e-2 on the hit
 distance and point where both hit (its transcendental functions are the
 card's own).
@@ -134,6 +135,93 @@ def test_extract_level_windows_matches_plain(cuda, dtype):
         levels[:1], torch.zeros_like(lvl), r0 % 260, c0 % 636, wh, ww,
         scale, offset)
     assert torch.equal(one.cpu(), ref_one)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("rows_per_thread", [1, 4])
+@pytest.mark.parametrize("dtype", hard_cases.EXTRACT_DTYPES)
+@pytest.mark.parametrize("family", hard_cases.EXTRACT_FAMILIES
+                         + hard_cases.EXTRACT_GUARD_FAMILIES)
+def test_extract_hard_cases_match_plain(cuda, family, dtype,
+                                        rows_per_thread, monkeypatch):
+    """K1 and K5 on every 16-byte phase of c0 for every texel size and
+    (H, W, 3) levels, on and past every level edge (K5's zeros, K1's
+    clamp), on levels smaller than the window, with level indices out of
+    range, 1 and 37 blocks, and the shadow|bounce pair in one launch,
+    with each thread walking one row (as far as a block holds them) and
+    at the default: bit-equal to the plain versions."""
+    monkeypatch.setattr(extract, "ROWS_PER_THREAD", rows_per_thread)
+    case = hard_cases.extract_hard_case(family, dtype, seed=13)
+    k1, k5 = hard_cases.extract_case_calls(
+        case, lambda a: torch.from_numpy(a).to(cuda),
+        lambda t: t.to(torch.bfloat16))
+    if k1 is not None:
+        out_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        n0 = extract.extract_group_windows.launches
+        got = extract.extract_group_windows(**k1, out_dtype=out_dtype)
+        ref = extract.extract_group_windows_plain(**k1, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert extract.extract_group_windows.launches == n0 + 1
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert torch.equal(_bits(got), _bits(ref))
+    if k5 is not None:
+        n0 = extract.extract_level_windows.launches
+        got = extract.extract_level_windows(**k5)
+        ref = extract.extract_level_windows_plain(**k5)
+        torch.cuda.synchronize()
+        assert extract.extract_level_windows.launches == n0 + 1
+        assert got.shape == ref.shape
+        assert torch.equal(_bits(got), _bits(ref))
+
+
+def test_extraction_allocates_its_output_alone(cuda):
+    """K1 and K5 read strided and interleaved levels in place: the device
+    memory a call allocates is its output and nothing more (a copy of the
+    (H, W, 3) level or of its planes would show)."""
+    rng = np.random.default_rng(17)
+    full = [torch.from_numpy(rng.integers(0, 256, (h, w, 3))
+                             .astype(np.uint8)).to(cuda)
+            for h, w in ((1441, 3073), (721, 1537))]
+    nblk = 512
+    lvl = torch.from_numpy((np.arange(nblk) % 2).astype(np.int32)).to(cuda)
+    r0 = torch.from_numpy(rng.integers(0, 600, nblk).astype(np.int32)) \
+        .to(cuda)
+    c0 = torch.from_numpy(rng.integers(0, 1400, nblk).astype(np.int32)) \
+        .to(cuda)
+    calls = (
+        lambda: extract.extract_group_windows(
+            (tuple(full),), lvl, r0, c0, 40, 64, scales=(1 / 255.0,)),
+        lambda: extract.extract_group_windows(
+            tuple(tuple(f[:, :, ch] for f in full) for ch in range(3)), lvl,
+            r0, c0, 40, 64, scales=(1 / 255.0,) * 3),
+        lambda: extract.extract_level_windows(tuple(full), lvl, r0, c0, 40,
+                                              64, scale=1 / 255.0),
+        lambda: extract.extract_level_windows(
+            (tuple(f[:, :, 1] for f in full),) * 2, lvl, r0, c0, 40, 64,
+            scale=1 / 255.0))
+    def grown(make):
+        """(device memory a call of make allocates at its peak, result)"""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        made = make()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before, made
+
+    outs = []
+    for fn in calls:
+        shape = fn().shape
+        grew_out, empty = grown(lambda: torch.empty(
+            shape, dtype=torch.float32, device=cuda))
+        del empty
+        grew, out = grown(fn)
+        assert out.shape == shape and grew == grew_out, (grew, grew_out)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[2][..., 1], outs[3][:, :, :64])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int16", "uint8"])
@@ -264,8 +352,9 @@ def test_scene_renders_through_the_kernels(cuda):
     assert img.shape == (144, 256, 3) and img.max() > 0
     assert torch.isfinite(s._accum).all()
 
-    # the same scene through the blocked backend: K5 cuts its six window
-    # sets (heights, three albedo planes, shadow, bounce) once for the pose
+    # the same scene through the blocked backend: K5 cuts its three window
+    # sets (heights, albedo as whole texels, shadow|bounce) once for the
+    # pose
     import dataclasses
     sb = MoonScene(dataclasses.replace(cfg, backend="blocked"),
                    (elev / rs).astype(np.float32), rs, albedo, None)
@@ -274,7 +363,7 @@ def test_scene_renders_through_the_kernels(cuda):
     img_b = sb.render(4)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts["extract_level_windows"] == 6, counts
+    assert counts["extract_level_windows"] == 3, counts
     assert counts["march_shade"] == 0 and counts["extract_group_windows"] == 0
     assert torch.isfinite(sb._accum).all()
     d = np.abs(img_b.astype(int) - img.astype(int)).max(axis=-1)

@@ -10,10 +10,11 @@ Importing this module also starts PyTorch's CPU thread pool (see
 ``_start_torch_threads``), so every test file that compares frames
 imports it.
 
-``shadow_hard_case`` and ``resample_hard_case`` are the one numpy
-generator of the inputs a wrong split of a kernel's work gets wrong
-(moonrtx_tpu_torch/hard_cases.py, which the card's smoke run replays
-too); ``resample_case_with`` hands one case to either framework.
+``shadow_hard_case``, ``resample_hard_case`` and ``extract_hard_case``
+are the one numpy generator of the inputs a wrong split of a kernel's
+work gets wrong (moonrtx_tpu_torch/hard_cases.py, which the card's smoke
+run replays too); ``resample_case_with`` and ``extract_case_calls`` hand
+one case to either framework.
 """
 
 import contextlib
@@ -23,9 +24,10 @@ import pytest
 import torch
 
 from moonrtx_tpu_torch.hard_cases import (  # noqa: F401  (for the tests)
+    EXTRACT_DTYPES, EXTRACT_FAMILIES, EXTRACT_GUARD_FAMILIES,
     RESAMPLE_DTYPES, RESAMPLE_FAMILIES, RESAMPLE_GUARD_FAMILIES,
-    SHADOW_FAMILIES, SHADOW_SAR, resample_case_with, resample_hard_case,
-    shadow_hard_case)
+    SHADOW_FAMILIES, SHADOW_SAR, extract_case_calls, extract_hard_case,
+    resample_case_with, resample_hard_case, shadow_hard_case)
 
 
 def _start_torch_threads():
