@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--synth-shape 11520x23040] [--out chip_smoke_out]
 
-Drives the port's two main paths once each, as a user would: 1920x1080,
+Drives the port's two main paths once each, and the interactive session
+on the first, as a user would: 1920x1080,
 shadow accuracy 10, indirect light, eclipse shading and earthshine on, on
 a synthetic LOLA-sized map (int16 heights, uint8 albedo;
 ``--synth-shape 23040x46080`` is the full benchmark size): the march-kernel
@@ -19,7 +20,8 @@ Phases, each fatal on failure:
    frame must be finite; then a warm re-burst (same pose) for the
    per-sample time.
    The blocked path, on the same scene and maps (switched with
-   ``scene.backend``, pose caches dropped with ``set_camera``): counters
+   ``scene.backend``, pose caches dropped with ``set_view_orientation``):
+   counters
    set to 0, render(8), counters read; K5 must have launched three times
    for the pose (heights, albedo as whole texels, shadow|bounce), the
    frame must be finite and agree with the march path's frame;
@@ -46,7 +48,28 @@ Phases, each fatal on failure:
    scene rendered by the plain versions on the CPU, for the march, the
    blocked and the gather reference backends; and a shadow scan whose
    resample group does not divide its block count (K5's other caller)
-   must give the heights the CPU gives.
+   must give the heights the CPU gives;
+6. the interactive session on the phase-3 scene and maps, driven through
+   app.session.Session on the march path: Q/W time steps that keep the
+   pose windows or rebuild them, bounce-map rebuilds and refreshes queued
+   behind the frame, the flip cache, the held-key speculation, W W W Q W
+   Q Q W and Q Q W Q Q scrubs, 2-px orbit drags, picking and measurement; then time steps and drags on the
+   blocked path. One ``# session:`` line per metric, named and measured
+   as the reference's bench.py:191-350 (the key event up to the
+   synchronised one-sample frame): time_step_latency_ms,
+   time_step_rebuild_ms, time_step_held_mean_ms, time_step_prefetch_ms,
+   time_step_miss_ms, time_step_mixed_mean_ms, time_step_backward_mean_ms,
+   drag_step_ms, pick_ms, and the phase's peak device memory, with every
+   kernel counter set to 0 before the phase and read after it. Checks:
+   (a) a consumed speculation gives the frame and hit buffer of the same
+   step rendered without one, bit for bit (a 1-, 15- and 360-minute step);
+   (b) a flip-cache hit launches no kernel and shows the snapshot's frame;
+   (c) the frames after held one-minute steps (with a bounce crossing
+   whose next step reads the refreshed map) and after 2-px drags, each
+   taken on until the next step would overrun the windows' drift budget,
+   agree with the same view rendered from cold pose caches and a fresh
+   bounce map, within phase 3b's bounds; (d) picks through the 128x128 window equal the full
+   host hit buffer, and a centre pick and a measurement are finite.
 
 The second-to-last line of standard output is the card's name and power
 limit, and the one before it the ``kernels`` JSON; the last line is the
@@ -97,7 +120,16 @@ PATH_KERNELS = {
     "pallas": ("extract_group_windows", "march_shade", "shadow_factor",
                "resample_group_windows"),
     "blocked": ("extract_level_windows",),
+    # the interactive session: time steps and drags on the march path (K1
+    # shadow windows, K3/K4 scan, K4 bounce refresh, K2), time steps on
+    # the blocked path (K5 shadow|bounce windows)
+    "session": ("extract_group_windows", "march_shade", "shadow_factor",
+                "resample_group_windows", "extract_level_windows"),
 }
+SESSION_STEPS = 8          # steps per time-step metric (bench.py:191-350)
+SESSION_PICKS = 20         # cursor positions of the pick metric
+# phase 3b's bounds for a frame against the same frame rendered another way
+FRAME_BOUNDS = "mean < 0.5, p99 <= 3, share < 0.005, hits >= 0.999"
 K5_LAUNCHES_PER_POSE = 3   # heights, albedo (whole texels), shadow|bounce
 # device ms of the earlier designs of the kernels redesigned since (one
 # thread per column; a per-texel staging loop; a thread per texel and
@@ -204,6 +236,22 @@ def touched_bytes(levels, lvl_idx, r0, c0, wh: int, ww: int) -> int:
         total += int(cover.sum()) * lvl.element_size() * (
             lvl.shape[2] if lvl.ndim == 3 else 1)
     return total
+
+
+def frame_diff(img_a, img_b, hit_a, hit_b) -> dict:
+    """Per-pixel max |d| statistics of two uint8 frames and the hit-flag
+    agreement."""
+    import numpy as np
+
+    d = np.abs(img_a.astype(int) - img_b.astype(int)).max(axis=-1)
+    return dict(mean=float(d.mean()), p99=float(np.percentile(d, 99)),
+                over8=float((d > 8).mean()),
+                hits=float((hit_a == hit_b).mean()))
+
+
+def within_frame_bounds(st: dict) -> bool:
+    return (st["mean"] < 0.5 and st["p99"] <= 3 and st["over8"] < 0.005
+            and st["hits"] >= 0.999)
 
 
 def nbytes(*tensors) -> int:
@@ -351,6 +399,381 @@ def compare(name: str, call: dict, got, ref) -> list:
     return [("out", err, tol)]
 
 
+def session_phase(scene) -> None:
+    """Phase 6: the interactive session on the phase-3 scene and maps,
+    driven through app.session.Session. Prints one ``# session:`` line per
+    metric (named and measured as the reference's bench.py:191-350: the
+    timed span is the key event up to the synchronised one-sample frame;
+    the speculation and display that follow are untimed) and fails on any
+    check (a)-(d) and if a kernel of the session was never launched."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    from moonrtx_tpu_torch import kernels
+    from moonrtx_tpu_torch.app.session import Session
+    from moonrtx_tpu_torch.astro import calculate_ephemeris
+    from moonrtx_tpu_torch.data.features import load_moon_features
+    from moonrtx_tpu_torch.engine.scene import _rotation_angle_deg
+    from moonrtx_tpu_torch.interact import navigation as nav
+
+    step15 = timedelta(minutes=15)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def hits_of():
+        return (scene._hitbuf[..., 3] > 0).cpu().numpy()[
+            :scene.out_height, :scene.out_width]
+
+    def say(text):
+        print(f"# session: {text}", flush=True)
+
+    def timed(event):
+        """ms of event() + the one-sample frame, synchronised; and whether
+        the pose windows survived."""
+        org = scene._origins
+        t0 = time.perf_counter()
+        event()
+        scene.ensure_accumulated(1)
+        sync()
+        return (time.perf_counter() - t0) * 1e3, scene._origins is org
+
+    def cold_frame():
+        """The current datetime and camera from cold pose caches and a
+        fresh bounce map (no flip cache, no speculation)."""
+        scene._prefetch = None
+        scene._flip_cache = None
+        scene._bounce = scene._bounce_basis = scene._bounce_key = None
+        scene._shadow_dirty = True
+        scene.set_view_orientation(scene.view_orientation)
+        img = scene.render(1)
+        return img, hits_of()
+
+    def check_against_cold(what, img, hit):
+        used = scene._window_drift
+        img_c, hit_c = cold_frame()
+        st = frame_diff(img, img_c, hit, hit_c)
+        say(f"(c) the frame after the {what} (windows drifted {used:.4f} of "
+            f"their {budget:.4f} deg) against the same view from "
+            f"cold pose caches and a fresh bounce map: mean |d| "
+            f"{st['mean']:.4f}, p99 |d| {st['p99']:.1f}, share beyond 8 "
+            f"levels {st['over8']:.5f}, hit agreement {st['hits']:.5f} "
+            f"(tolerance: {FRAME_BOUNDS})")
+        if not within_frame_bounds(st):
+            fail(f"session: the frame after the {what} disagrees with the "
+                 "cold render")
+
+    scene.backend = "pallas"
+    scene.set_view_orientation(scene.view_orientation)  # march windows
+    scene._prefetch = None
+    scene._flip_cache = None
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    sess = Session(scene, load_moon_features(None))
+    sess.frame()                            # the pose at the start time
+    level = scene.mip_level()
+    rows = scene.mip_shapes[level][0]
+    budget = 4.0 * 180.0 / rows
+    say(f"render level {level} ({rows} rows): the windows' drift budget is "
+        f"{budget:.4f} deg of rotation or camera sweep")
+
+    def rotation(dt):
+        return np.asarray(calculate_ephemeris(
+            dt, scene.config.observer, scene.parallactic_mode).rotation_matrix)
+
+    def scene_step(minutes=15):
+        """(ms, windows kept, the step's rotation drift in deg)."""
+        prev = np.asarray(scene.ephem.rotation_matrix)
+        ms, kept = timed(lambda: scene.update_view(
+            scene.dt_local + timedelta(minutes=minutes)))
+        return ms, kept, _rotation_angle_deg(
+            np.asarray(scene.ephem.rotation_matrix), prev)
+
+    def drifts(runs):
+        return (f"rotation per step {[round(d, 4) for *_, d in runs]} deg "
+                f"against the {budget:.4f} deg budget")
+
+    # warm both step paths (drift reuse, bounce rebuild)
+    scene_step()
+    scene._bounce_basis = None
+    scene_step()
+    steps = [scene_step() for _ in range(SESSION_STEPS)]
+    say(f"time_step_latency_ms {min(ms for ms, *_ in steps):.3f} (min of "
+        f"{SESSION_STEPS}; all {[round(ms, 2) for ms, *_ in steps]}; pose "
+        f"windows kept on {sum(k for _, k, _ in steps)} of {SESSION_STEPS}; "
+        f"{drifts(steps)})")
+
+    rebuilds = []
+    for _ in range(3):
+        scene._bounce_basis = None          # trip the drift threshold
+        rebuilds.append(scene_step()[0])
+    say(f"time_step_rebuild_ms {sorted(rebuilds)[1]:.3f} (median of 3: "
+        f"{[round(ms, 2) for ms in rebuilds]})")
+
+    # held key: crossings of the bounce threshold refresh the map behind
+    # the frame; warm that variant with a forced crossing first
+    a = np.deg2rad(0.8)
+    rot = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                    [0, np.sin(a), np.cos(a)]], np.float64)
+    scene._bounce_basis = (rot @ scene._bounce_basis.T).T
+    scene_step()
+    held, display_ms, refreshed, rebuilt = [], [], 0, 0
+    for _ in range(SESSION_STEPS):
+        bounce = scene._bounce
+        held.append(scene_step())
+        if scene._bounce is not bounce:
+            # a kept pose runs the merged step, which refreshes the bounce
+            # map behind the frame; a pose rebuild rebuilds it before
+            refreshed += held[-1][1]
+            rebuilt += not held[-1][1]
+        t0 = time.perf_counter()
+        scene.display()
+        display_ms.append((time.perf_counter() - t0) * 1e3)
+    held_ms = float(np.mean([ms for ms, *_ in held]))
+    say(f"time_step_held_mean_ms {held_ms:.3f} "
+        f"(mean of {SESSION_STEPS}; {[round(ms, 2) for ms, *_ in held]}; "
+        f"pose windows kept on {sum(k for _, k, _ in held)}; bounce map "
+        f"refreshed behind the frame {refreshed}, rebuilt with a pose "
+        f"{rebuilt} times; the display copy after each step "
+        f"{np.mean(display_ms):.3f} ms; {drifts(held)})")
+
+    # a threshold crossing on a kept pose: one-minute steps keep the
+    # windows; a bounce basis turned 0.6 deg (past BOUNCE_REUSE_DEG, inside
+    # BOUNCE_ASYNC_MAX_DEG) makes the next step refresh the map behind its
+    # frame, and the step after it must read the refreshed map
+    from moonrtx_tpu_torch.engine import blocked
+
+    read = []
+    real = blocked.render_timestep_scan_pallas
+
+    def spy(*args, **kw):
+        read.append(args[1])            # the bounce map the step shades with
+        return real(*args, **kw)
+
+    scene.set_view_orientation(scene.view_orientation)  # fresh windows
+    scene_step(1)
+    a = np.deg2rad(0.6)
+    rot = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                    [0, 0, 1]], np.float64)
+    scene._bounce_basis = (rot @ scene._bounce_basis.T).T
+    blocked.render_timestep_scan_pallas = spy
+    try:
+        old_map = scene._bounce
+        _, kept1, _ = scene_step(1)
+        new_map = scene._bounce
+        _, kept2, _ = scene_step(1)
+    finally:
+        blocked.render_timestep_scan_pallas = real
+    ok = (kept1 and kept2 and len(read) == 2 and read[0] is old_map
+          and new_map is not old_map and read[1] is new_map)
+    say(f"bounce threshold crossing on a kept pose: the crossing step shaded "
+        f"with the cached map and queued a refresh "
+        f"({bool(read) and read[0] is old_map and new_map is not old_map}), "
+        f"the next step read the refreshed map ({ok}); windows kept "
+        f"{kept1}, {kept2}; merged steps {len(read)}")
+    if not ok:
+        fail("session: the step after a bounce crossing did not read the "
+             "refreshed map")
+    # held one-minute steps on the same windows and bounce map until the
+    # next step would overrun the windows' drift budget
+    edge = 0
+    while edge < 240 and scene._windows_hold(_rotation_angle_deg(
+            rotation(scene.dt_local + timedelta(minutes=1)),
+            np.asarray(scene.ephem.rotation_matrix))):
+        if not scene_step(1)[1]:
+            fail("session: a step inside the drift budget rebuilt the "
+                 "windows")
+        edge += 1
+    img_h = scene.display()
+    check_against_cold(f"crossing and {edge + 1} more held one-minute "
+                       "steps", img_h, hits_of())
+
+    # speculative held key, through Session.change_time + Session.frame
+    sess.change_time(15)
+    sess.frame()
+    pf_ms, pf_hits, pf_kinds, frame_ms = [], 0, [], []
+    for _ in range(SESSION_STEPS):
+        pf = scene._prefetch
+        ms, _ = timed(lambda: sess.change_time(15))
+        pf_hits += pf is not None and scene._accum is pf["accum"]
+        pf_kinds.append(None if pf is None else pf["kind"])
+        pf_ms.append(ms)
+        t0 = time.perf_counter()
+        sess.frame()                        # speculation + display copy
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    say(f"time_step_prefetch_ms {np.mean(pf_ms):.3f} (mean of "
+        f"{SESSION_STEPS}; {[round(ms, 2) for ms in pf_ms]}; prefetch hits "
+        f"{pf_hits} of {SESSION_STEPS}; kinds {pf_kinds}; Session.frame's "
+        f"speculation dispatch + display copy after each step "
+        f"{np.mean(frame_ms):.3f} ms)")
+    say(f"key-to-frame of a held key (step + the display copy or "
+        f"Session.frame): unspeculated {held_ms + np.mean(display_ms):.3f} "
+        f"ms; speculated {np.mean(pf_ms) + np.mean(frame_ms):.3f} ms")
+
+    def scrub(keys):
+        """Key presses through Session; a step is covered by the flip cache
+        or by a speculation that survived its update_view (bench.py)."""
+        times, hits, misses = [], 0, []
+        for key in keys:
+            t0 = time.perf_counter()
+            sess.handle_key(key)
+            hit = scene._prefetch is not None or scene.last_flip_hit
+            scene.ensure_accumulated(1)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            times.append(ms)
+            hits += hit
+            if not hit:
+                misses.append(ms)
+            sess.frame()
+        return times, hits, misses
+
+    mixed, mixed_hits, miss = scrub("wwwqwqqw")
+    say(f"time_step_miss_ms {max(miss) if miss else None} (worst uncovered "
+        f"step of W W W Q W Q Q W)")
+    say(f"time_step_mixed_mean_ms {np.mean(mixed):.3f} "
+        f"({[round(ms, 2) for ms in mixed]}; covered by the flip cache or a "
+        f"speculation: {mixed_hits} of 8)")
+    back, back_hits, _ = scrub("qqwqq")
+    say(f"time_step_backward_mean_ms {np.mean(back):.3f} "
+        f"({[round(ms, 2) for ms in back]}; covered {back_hits} of 5)")
+
+    # (b) a flip hit launches nothing and shows the snapshot's frame
+    scene._prefetch = None
+    img_t = scene.display()
+    sess.handle_key("w")
+    sess.frame()
+    sync()
+    with kernels.recording() as calls:
+        sess.handle_key("q")
+        flip = scene.last_flip_hit
+        scene.ensure_accumulated(1)
+    img_q = scene.display()
+    say(f"(b) flip back: flip-cache hit {flip}, kernel launches {len(calls)}"
+        f", frame equal to the snapshot's: {np.array_equal(img_q, img_t)}")
+    if not flip or calls or not np.array_equal(img_q, img_t):
+        fail("session: the flip step launched kernels or changed the frame")
+
+    # (a) a consumed speculation against the same step without one, from
+    # the same state: the flip back to t restores that state
+    kinds = set()
+    for minutes in (1, 15, 360):
+        sess.frame()
+        scene._prefetch = None
+        scene._flip_cache = None
+        t = scene.dt_local
+        if not scene.prefetch_time(t + timedelta(minutes=minutes)):
+            fail("session: prefetch_time dispatched nothing")
+        pf = scene._prefetch
+        scene.update_view(t + timedelta(minutes=minutes))
+        scene.ensure_accumulated(1)
+        consumed = scene._accum is pf["accum"]
+        img_a, hit_a = scene.display(), scene._hitbuf
+        scene.update_view(t)
+        if not scene.last_flip_hit:
+            fail("session: the flip back to the speculation's state missed")
+        scene._flip_cache = None
+        scene.update_view(t + timedelta(minutes=minutes))
+        scene.ensure_accumulated(1)
+        img_b = scene.display()
+        same = np.array_equal(img_a, img_b) and torch.equal(hit_a,
+                                                            scene._hitbuf)
+        d = int(np.abs(img_a.astype(int) - img_b.astype(int)).max())
+        say(f"(a) {minutes}-minute step, {pf['kind']} speculation consumed "
+            f"{consumed}: frame against the unspeculated step max |d| {d}, "
+            f"hit buffers equal {same}")
+        if not consumed or not same:
+            fail("session: a consumed speculation differs from the step "
+                 "rendered without it")
+        kinds.add(pf["kind"])
+    if kinds != {"timestep", "pose"}:
+        fail(f"session: check (a) saw speculations of kinds {kinds} only")
+
+    # drags: 2-px orbit steps that keep the windows
+    sess.frame()
+    drags = [timed(lambda: sess.orbit_drag(2.0, 0.0))
+             for _ in range(SESSION_STEPS)]
+    say(f"drag_step_ms {np.mean([ms for ms, _ in drags]):.3f} (mean of "
+        f"{SESSION_STEPS} 2-px orbit drags; "
+        f"{[round(ms, 2) for ms, _ in drags]}; windows kept on "
+        f"{sum(k for _, k in drags)} of {SESSION_STEPS}, drifted "
+        f"{scene._window_drift:.4f} of {budget:.4f} deg)")
+    if sum(k for _, k in drags) == 0:
+        fail("session: no drag step kept the pose windows")
+    # more drags on the same windows until the next would overrun the budget
+    edge = 0
+    while edge < 2000:
+        cam = nav.orbit_drag(scene.camera, 2.0, 0.0, scene.out_height)
+        d = scene._camera_drift_deg(scene.camera, cam)
+        if d is None or not scene._windows_hold(d):
+            break
+        org = scene._origins
+        sess.orbit_drag(2.0, 0.0)
+        if scene._origins is not org:
+            fail("session: a drag inside the drift budget rebuilt the "
+                 "windows")
+        edge += 1
+    scene.ensure_accumulated(1)
+    img_d = scene.display()
+    check_against_cold(f"{SESSION_STEPS + edge} drag steps", img_d,
+                       hits_of())
+
+    # (d) picking on a fresh frame, then measurement
+    sess.frame()
+    cy, cx = scene.out_height // 2, scene.out_width // 2
+    # a cursor sweeping across the disc, 20 px an event: the pick window
+    # re-centres every few positions
+    pts = [(min(int(cx - 0.2 * cx + 20 * k), scene.out_width - 1),
+            min(int(cy - 0.1 * cy + 6 * k), scene.out_height - 1))
+           for k in range(SESSION_PICKS)]
+    copies, win = 0, None
+    t0 = time.perf_counter()
+    vals = []
+    for x, y in pts:
+        vals.append(scene.get_hit_at(x, y))
+        copies += scene._pickwin is not win
+        win = scene._pickwin
+    pick_ms = (time.perf_counter() - t0) * 1e3 / len(pts)
+    buf = scene.hit_buffer_host()
+    equal = all(v == tuple(float(c) for c in buf[y, x])
+                for v, (x, y) in zip(vals, pts))
+    lat, lon = sess.pick(cx, cy)
+    sess.start_measurement(cx - cx // 6, cy - cy // 8)
+    sess.finish_measurement(cx + cx // 6, cy + cy // 6)
+    dist, dh = sess.measured_distance, sess.measured_height_diff
+    say(f"pick_ms {pick_ms:.4f} (mean of {len(pts)} cursor positions, "
+        f"{copies} window copies of {scene.PICK_WIN}x{scene.PICK_WIN}x4); "
+        f"(d) equal to the full host buffer {equal}; centre pick lat "
+        f"{lat}, lon {lon}; measured {dist} km, dh {dh} m")
+    if not (equal and lat is not None and np.isfinite([lat, lon]).all()
+            and dist is not None and np.isfinite([dist, dh]).all()):
+        fail("session: picking or measurement is wrong")
+    peak_pallas = torch.cuda.max_memory_allocated() / 2**30
+
+    # the blocked path (phase 3b's scene): time steps and drags
+    scene.backend = "blocked"
+    scene.set_view_orientation(scene.view_orientation)
+    scene._prefetch = None
+    scene._flip_cache = None
+    sess.frame()
+    b_steps = [timed(lambda: sess.change_time(15)) for _ in range(4)]
+    b_drags = [timed(lambda: sess.orbit_drag(2.0, 0.0)) for _ in range(4)]
+    sync()
+    for what, runs in (("time steps", b_steps), ("drag steps", b_drags)):
+        say(f"blocked path, 4 {what}: {[round(ms, 2) for ms, _ in runs]} ms, "
+            f"pose windows kept on {sum(k for _, k in runs)} of 4")
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"peak device memory {peak:.2f} GiB (march path part "
+        f"{peak_pallas:.2f}); launches {counts}")
+    for name in PATH_KERNELS["session"]:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched in the session")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--synth-shape", default="11520x23040",
@@ -457,10 +880,11 @@ def main(argv=None) -> int:
           flush=True)
 
     # ---- 3b. the blocked path, same scene and maps -------------------------
-    # the backend switch tools/make_goldens.py makes; set_camera drops the
-    # pose caches, the sun's shadow and bounce maps stay
+    # the backend switch tools/make_goldens.py makes; a view-orientation
+    # set drops the pose caches (a set_camera to the same camera keeps
+    # them), the sun's shadow and bounce maps stay
     scene.backend = "blocked"
-    scene.set_camera(scene.camera)
+    scene.set_view_orientation(scene.view_orientation)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -785,6 +1209,10 @@ def main(argv=None) -> int:
           f", 4e-3 of their spread: the bf16 row mix)", flush=True)
     if not (1 <= n_k5 <= 3 and err <= 4e-3 * spread):
         fail("the ungrouped scan resample disagrees with the CPU")
+
+    # ---- 6. the interactive session ----------------------------------------
+    print(f"# session: card {card}", flush=True)
+    session_phase(scene)
 
     print(json.dumps({"kernels": report}))
     print(card)

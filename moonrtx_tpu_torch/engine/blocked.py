@@ -21,7 +21,9 @@ Cache structure (what changes when):
 * ShadowWindows — additionally the sun direction.
 * Per sample: jittered rays, then march and shading.
 
-The time-step programs come with a later slice.
+A time step that keeps the pose windows runs render_timestep_scan_pallas
+(scan, shadow windows, sun-side repack, burst) or, after a bounce
+rebuild, render_timestep_pallas; a pose change runs render_pose_pallas.
 """
 
 from __future__ import annotations
@@ -798,3 +800,81 @@ def render_pose_pallas(mips, albedo_mips, slope_maps, smap, smap_params,
                               use_shadow, hbound=geom0.h_bound)
     return (rgb, hitbuf, org, cache, hwin_p, awin_p, swin_p, scal,
             geom0.h_bound)
+
+
+def build_shadow_state_from_maps(smap, smap_params, geom: RayGeom,
+                                 cache: WindowCache, org: WindowOrigins,
+                                 bmap=None):
+    """Shadow/bounce windows + the sun-part repack from already-built
+    maps: the geometry-dependent half of the shadow state. The maps depend
+    only on the sun, so a camera pose change at a fixed time rebuilds only
+    this half and reuses them.
+
+    Returns (ShadowWindows, swin_packed, scal); the caller combines
+    swin/scal with its cached pose-packed hwin/awin (pack_pose_windows),
+    so a time step never moves those again."""
+    sw = build_shadow_windows(smap, smap_params, geom, bounce_map=bmap)
+    swin_packed, scal = _pack_sun_parts(cache, org, sw)
+    return sw, swin_packed, scal
+
+
+def render_timestep_pallas(smap, smap_params, bmap, cache: WindowCache,
+                           org: WindowOrigins, hwin_p, awin_p, background,
+                           maxmap, basis: CameraBasis, fp: FrameParams,
+                           jitters, height: int, width: int, h: int, w: int,
+                           h_min: float, ah: int, aw: int,
+                           n_samples: int = 8, n_coarse: int = 12,
+                           hbound=None):
+    """The time-step (Q/W) path with the pose windows kept: shadow/bounce
+    windows from the freshly scanned maps (K1), the sun-side repack and
+    the accumulation burst (K2).
+
+    Returns (rgb_mean, hitbuf, swin_packed, scal) so the caller can keep
+    the sun-side pack for later pose-stable frames. hbound: the cached
+    pose-local per-block chord bound (RayGeom.h_bound), which skips the
+    maxmap gather in the ray setup."""
+    geom0 = block_rays(basis, fp.rotation, jitters[0], height, width,
+                       h_min, maxmap=maxmap, h_bound=hbound)
+    sw = build_shadow_windows(smap, smap_params, geom0, bounce_map=bmap)
+    swin_p, scal = _pack_sun_parts(cache, org, sw)
+    packed = PackedWindows(hwin=hwin_p, awin=awin_p, swin=swin_p, scal=scal)
+    rgb, hitbuf = _burst_core(packed, smap_params, background, maxmap,
+                              basis, fp, jitters, height, width, h, w,
+                              h_min, ah, aw, n_samples, n_coarse, True,
+                              hbound=geom0.h_bound)
+    return rgb, hitbuf, swin_p, scal
+
+
+def render_timestep_scan_pallas(stex, bmap, sun_basis, sun_ang_radius,
+                                cache: WindowCache, org: WindowOrigins,
+                                hwin_p, awin_p, background, maxmap,
+                                basis: CameraBasis, fp: FrameParams, jitters,
+                                height: int, width: int, h: int, w: int,
+                                h_min: float, ah: int, aw: int,
+                                sh: int, sw: int, n_coarse_scan: int,
+                                n_fine: int, n_phi: int, n_samples: int = 1,
+                                n_coarse: int = 12, h_scale: float = 1.0,
+                                h_offset: float = 0.0, hbound=None):
+    """The drift-reuse time step (the common held-key Q/W step): the
+    sun-frame shadow scan, factor only (K4 resample, K3 prefix max; the
+    bounce map is the drift-reused cache, engine/scene.py
+    BOUNCE_REUSE_DEG), then render_timestep_pallas.
+
+    stex: the shadow-level heightfield mip; (sh, sw) its unpadded shape;
+    sun_basis: (3, 3) rows x, y, z of the sun frame; sun_ang_radius: a
+    float. Returns (rgb_mean, hitbuf, swin_packed, scal, smap, hs): smap so
+    the caller can keep it for pose changes, hs (scan-grid heights) so a
+    threshold crossing can queue shadow_scan.bounce_refresh without a
+    second scan."""
+    factor, hs = shadow_scan.scan_wedge(
+        stex, sun_basis, sun_ang_radius, sh, sw, n_coarse_scan, n_fine,
+        n_phi, 0, n_phi, blocked_resample=True, h_scale=h_scale,
+        h_offset=h_offset, return_heights=True)
+    smap = torch.cat([factor, factor[:, :shadow_scan.PHI_PAD]], dim=1)
+    smap_params = shadow_scan._params(sun_basis, n_coarse_scan, n_fine,
+                                      n_phi, sun_ang_radius)
+    rgb, hitbuf, swin_p, scal = render_timestep_pallas(
+        smap, smap_params, bmap, cache, org, hwin_p, awin_p, background,
+        maxmap, basis, fp, jitters, height, width, h, w, h_min, ah, aw,
+        n_samples=n_samples, n_coarse=n_coarse, hbound=hbound)
+    return rgb, hitbuf, swin_p, scal, smap, hs

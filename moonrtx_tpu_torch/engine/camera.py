@@ -80,3 +80,36 @@ def ray_directions(basis: CameraBasis, height: int, width: int,
          + basis.tan_half_fov * (u[..., None] * basis.right[None, None, :]
                                  + v[..., None] * basis.up[None, None, :]))
     return normalize(d)
+
+
+def probe_hit_dirs(cam: Camera, orientation: str, height: int, width: int,
+                   radius: float) -> np.ndarray:
+    """Unit directions (from the body center) of where a 3x3 grid of probe
+    pixels lands on the sphere of the given radius, on the host in float64.
+    Rays that miss use the closest-approach point, so limb and background
+    probes still track how the view sweeps past the body. Bounds how far
+    body-frame ray footprints move under a camera change."""
+    eye, fwd, right, up, thf = camera_basis_np(cam, orientation)
+    ys = np.array([0.0, (height - 1) / 2.0, height - 1.0])
+    xs = np.array([0.0, (width - 1) / 2.0, width - 1.0])
+    v = 1.0 - 2.0 * (ys[:, None] + 0.5) / height
+    u = (2.0 * (xs[None, :] + 0.5) / width - 1.0) * (width / height)
+    d = (fwd[None, None] + thf * (u[..., None] * right[None, None]
+                                  + v[..., None] * up[None, None]))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    # |eye + t d|^2 = r^2; fall back to closest approach (t = -eye.d)
+    b = d @ eye
+    disc = b * b - (eye @ eye - radius * radius)
+    t = np.where(disc > 0.0, -b - np.sqrt(np.maximum(disc, 0.0)), -b)
+    p = eye[None, None] + t[..., None] * d
+    return p / np.linalg.norm(p, axis=-1, keepdims=True)
+
+
+def pixel_ray(basis: CameraBasis, y: float, x: float,
+              height: int, width: int) -> torch.Tensor:
+    """Single ray direction for picking (image pixel coords, y down)."""
+    v = 1.0 - 2.0 * (y + 0.5) / height
+    u = (2.0 * (x + 0.5) / width - 1.0) * (width / height)
+    d = (basis.forward + basis.tan_half_fov
+         * (u * basis.right + v * basis.up))
+    return normalize(d)

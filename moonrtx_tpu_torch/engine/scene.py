@@ -19,10 +19,17 @@ across: off a TPU the reference turns "pallas" into "blocked", because
 its fused kernel needs the TPU compiler; here "pallas" stays the march
 path on the card and on the CPU alike.
 
-A time change or a camera change drops the pose caches, so the next
-render rebuilds them. The reference's drift reuse of the windows, its
-time-step programs, flip cache, speculative prefetch, device mesh and
-banded uploads come in later slices.
+Between frames the scene keeps what a small change leaves valid, as the
+reference does: a time step or a camera drag whose accumulated drift stays
+inside the windows' margin keeps the pose windows (update_view,
+set_camera); on the march path such a time step runs one scan + shadow
+windows + burst step and reuses the bounce map, refreshing it behind the
+frame past BOUNCE_REUSE_DEG (render_accumulation_burst); the step just
+left is kept for a Q/W direction flip (the flip cache); and the next
+held-key step can be dispatched ahead (prefetch_time), in stream order
+behind the frame. Picking and measurement read small host copies
+(get_hit_at, elevation_m_at). The device mesh and banded uploads come in
+a later slice.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from moonrtx_tpu_torch.data.mips import pad_lon_wrap, select_level
 from moonrtx_tpu_torch.data.pyramids import PAD_COLS, QUANTIZE_TEXELS, load_or_build
 from moonrtx_tpu_torch.device import resolve_device
 from moonrtx_tpu_torch.engine import blocked
+from moonrtx_tpu_torch.engine import camera as camera_mod
 from moonrtx_tpu_torch.engine import geometry
 from moonrtx_tpu_torch.engine import light as light_mod
 from moonrtx_tpu_torch.engine import render as render_mod
@@ -55,10 +63,21 @@ from moonrtx_tpu_torch.types import Camera, MoonEphemeris
 # (<= 2304x4096 cells); building from a much finer mip wastes bandwidth.
 SHADOW_MAX_TEXELS = 20 * 1024 * 1024
 
-# One-bounce irradiance maps are reused while the sun-frame rotation since
-# their build stays under this angle (the field is blurred over >= 2 scan
-# cells, ~0.1-0.2 deg of arc).
+# One-bounce irradiance maps are reused across time steps while the
+# sun-frame rotation since their build stays under this angle. The field's
+# own blur scale is >= 2 scan cells (~0.1-0.2 deg of arc), so drifts below
+# the threshold are inside its intrinsic resolution; a 15-min Q/W step
+# moves the sun ~0.13 deg, so held-key animation rebuilds the bounce about
+# every 4th step and the shadow factor map every step.
 BOUNCE_REUSE_DEG = 0.5
+
+# Crossing BOUNCE_REUSE_DEG during held-key animation does NOT stall the
+# frame on a bounce rebuild: the step renders with the cached map and a
+# shadow_scan.bounce_refresh is queued BEHIND it (reusing the frame's own
+# scan), so the next step picks up the fresh map. The stale map is used up
+# to threshold + one step (~0.63 deg); beyond this cap (a time JUMP: date
+# dialog, "now") the rebuild is synchronous for correctness.
+BOUNCE_ASYNC_MAX_DEG = 4 * BOUNCE_REUSE_DEG
 
 
 def _earth_params(e, eclipse: bool, earthshine: bool) -> np.ndarray:
@@ -178,6 +197,11 @@ class MoonScene:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.upload_wall_s = _time.time() - t_upload
+        # Host level 0 stays referenced (mmap-backed when it came from the
+        # pyramid cache, never copied): full-resolution measurement
+        # samples it without device transfers. The other levels are
+        # dropped after upload.
+        self._host_mips = [ps.mips[0]] + [None] * (len(ps.mips) - 1)
 
         # internal render size padded to the block grid (display crops back)
         self.out_width = config.width
@@ -211,6 +235,20 @@ class MoonScene:
         self._accum = None
         self._accum_n = 0
         self._hitbuf = None
+        self._hitbuf_host = None     # once-per-frame host pick cache
+        self._hitbuf_src = None
+        self._pickwin = None         # host copy of a PICK_WIN^2 hit window
+        self._pickwin_src = None
+        self._pickwin_origin = (0, 0)
+        self._elev_host = None       # host elevation cache for measurement
+        self._elev_host_src = None
+        self._prefetch = None        # speculative next-time-step results
+        # one-deep flip cache: the previous time step's fully-rendered
+        # state, restorable when a Q/W direction flip targets it (t-1 is
+        # a state the device just computed)
+        self._flip_cache = None
+        self._flip_ready = False     # consumable: next burst may no-op
+        self.last_flip_hit = False   # observability (bench/tests)
         self._rng = np.random.default_rng(42)
 
     def _upload_aliased(self, host_alb):
@@ -255,15 +293,21 @@ class MoonScene:
             h_offset=state["h_offset"].item(),
             a_scale=state["a_scale"].item(),
             alb_min_level=state["alb_min_level"].item())
+        self._host_mips = [self.mips[0].cpu().numpy()] + [None] * (
+            len(self.mips) - 1)
         self._alb_lum = {}
         self._background = None
         self._shadow = self._bounce = None
         self._bounce_basis = self._bounce_key = None
         self._shadow_dirty = True
         self._clear_pose()
+        self._prefetch = None
+        self._flip_cache = None
+        self._flip_ready = False
         self.reset_accumulation()
 
     def _clear_pose(self) -> None:
+        self._window_drift = 0.0     # rotation/camera drift since extraction
         self._origins = None         # WindowOrigins (per pose+level+rotation)
         self._hbound = None          # per-block chord bound (pose-local)
         self._wincache = None        # WindowCache
@@ -273,21 +317,124 @@ class MoonScene:
 
     # ---- state updates -------------------------------------------------
 
-    def update_view(self, dt_local: Optional[datetime] = None) -> MoonEphemeris:
-        """Recompute ephemeris-driven state (reference moon_renderer.py:638-664).
+    def _flip_token(self):
+        """Everything a flip-cache entry's validity depends on besides its
+        datetime: any of these changing means the snapshot's frame/caches
+        no longer describe the scene the user sees. The camera is carried
+        by identity and pinned inside the entry (same aliasing discipline
+        as the prefetch token pins)."""
+        return (self.brightness, self.shadows_on, self.shadow_accuracy,
+                self.indirect_light, self.view_orientation,
+                id(self.camera), self.parallactic_mode, self.backend,
+                self.displaced)
 
-        Any time change drops the pose caches: the next render rebuilds
-        window origins, windows and shadow windows. The reference's drift
-        reuse with its time-step programs comes in a later slice."""
+    def _snapshot_step(self) -> Optional[dict]:
+        """Capture the CURRENT fully-rendered time step as a flip-cache
+        entry (references only: every field is a tensor no later step
+        writes in place, or a host value, so a snapshot copies nothing; the
+        device memory it keeps is one accum + hit buffer + the
+        sun-dependent packed windows)."""
+        if (self.ephem is None or self._accum is None or self._accum_n < 1
+                or not self.displaced
+                # _shadow_dirty is only meaningful while shadows render;
+                # with them off nothing ever clears it after a step
+                or (self._shadow_dirty and self.shadows_on)):
+            return None
+        return dict(
+            dt=self.dt_local, token=self._flip_token(), ephem=self.ephem,
+            shadow_dirty=self._shadow_dirty,
+            fp=self._fp, shadow=self._shadow, bounce=self._bounce,
+            bounce_basis=self._bounce_basis, bounce_key=self._bounce_key,
+            origins=self._origins, wincache=self._wincache,
+            cache_level=self._cache_level,
+            window_drift=self._window_drift,
+            hbound=self._hbound, packed=self._packed,
+            shadowwin=self._shadowwin, accum=self._accum,
+            hitbuf=self._hitbuf, accum_n=self._accum_n,
+            pins=(self.camera,))
+
+    def _restore_step(self, fc: dict) -> None:
+        """Install a flip-cache entry as the current scene state, the
+        exact inverse of _snapshot_step. The restored accumulation is
+        already on the device, so the following render_accumulation_burst
+        is a no-op (_flip_ready) and the step costs only the display
+        readback."""
+        self.dt_local = fc["dt"]
+        self.ephem = fc["ephem"]
+        self._fp = fc["fp"]
+        self._shadow = fc["shadow"]
+        self._shadow_dirty = fc["shadow_dirty"]
+        self._bounce = fc["bounce"]
+        self._bounce_basis = fc["bounce_basis"]
+        self._bounce_key = fc["bounce_key"]
+        self._origins = fc["origins"]
+        self._wincache = fc["wincache"]
+        self._cache_level = fc["cache_level"]
+        self._window_drift = fc["window_drift"]
+        self._hbound = fc["hbound"]
+        self._packed = fc["packed"]
+        self._shadowwin = fc["shadowwin"]
+        self._accum = fc["accum"]
+        self._hitbuf = fc["hitbuf"]
+        self._accum_n = fc["accum_n"]
+        self._flip_ready = True
+        if self._prefetch is not None \
+                and self._prefetch["dt"] != self.dt_local:
+            self._prefetch = None  # speculation missed: free its buffers
+
+    def update_view(self, dt_local: Optional[datetime] = None) -> MoonEphemeris:
+        """Recompute ephemeris-driven state (reference moon_renderer.py:638-664)."""
+        self.last_flip_hit = False
+        if (dt_local is not None and self.dt_local is not None
+                and dt_local != self.dt_local):
+            # Direction flips target a datetime the device may have JUST
+            # rendered (t-1). Snapshot the outgoing step and, when the
+            # cache holds the target, swap: the flip costs zero device
+            # work and W<->Q toggling ping-pongs between two resident
+            # steps.
+            snap = self._snapshot_step()
+            fc = self._flip_cache
+            if fc is not None and fc["token"] != self._flip_token():
+                fc = self._flip_cache = None  # stale entry: free its memory
+            if fc is not None and fc["dt"] == dt_local:
+                self._flip_cache = snap
+                self._restore_step(fc)
+                self.last_flip_hit = True
+                return self.ephem
+            if snap is not None:
+                self._flip_cache = snap
         if dt_local is not None:
             self.dt_local = dt_local
+        prev_rotation = (None if self.ephem is None
+                         else np.asarray(self.ephem.rotation_matrix))
         self.ephem = calculate_ephemeris(
             self.dt_local, self.config.observer, self.parallactic_mode)
-        self._fp = self._frame_params(self.ephem)
+        e = self.ephem
+        self._fp = self._frame_params(e)
         self._shadow_dirty = True
-        self._clear_pose()
+        if (self._prefetch is not None
+                and self._prefetch["dt"] != self.dt_local):
+            self._prefetch = None  # speculation missed: free its buffers
+        # Body-frame footprints move with the rotation; sampling windows
+        # carry a margin of several texels, so small drifts (successive
+        # time steps rotate the Moon ~0.14 deg / 15 min) reuse the cached
+        # windows and only the shadow map/windows rebuild. The drift is
+        # host float64 math, as in the reference, so both packages make
+        # the same decision.
+        if prev_rotation is None or self._origins is None:
+            self._origins = None
+        else:
+            drift = _rotation_angle_deg(np.asarray(e.rotation_matrix),
+                                        prev_rotation)
+            if not self._windows_hold(drift):
+                self._origins = None
+            self._window_drift = self._window_drift + drift
+        if self._origins is None:
+            self._window_drift = 0.0
+            self._hbound = None  # chord bound drifts with the rotation too
+        self._shadowwin = None  # sun-frame coordinates always move
         self.reset_accumulation()
-        return self.ephem
+        return e
 
     def _frame_params(self, e: MoonEphemeris) -> FrameParams:
         """Device per-frame light/photometric parameters for an ephemeris."""
@@ -322,17 +469,64 @@ class MoonScene:
         self.reset_accumulation()
 
     def set_camera(self, camera: Camera) -> None:
-        """Install a new camera pose. Every camera change drops the pose
-        caches (the reference reuses the windows across small moves; that
-        drift budget comes with the time-step slice)."""
+        """Install a new camera pose. Small moves (per-pixel orbit/roll
+        drag steps) REUSE the cached sampling windows: body-frame ray
+        footprints shift by at most the probe-measured drift angle, and
+        the windows carry the same several-texel margin that absorbs
+        small time-step rotations (update_view's drift policy), so a drag
+        step renders with one burst instead of the window re-extraction
+        and repack of a pose rebuild."""
+        drift = self._camera_drift_deg(self.camera, camera)
         self.camera = camera
-        self._camera_changed()
+        self._basis = None
+        self._background = None
+        self.reset_accumulation()
+        if drift is not None and self._origins is not None:
+            hold = self._windows_hold(drift)
+            self._window_drift = self._window_drift + drift
+            if hold:
+                return
+        self._origins = None
+        self._hbound = None
+
+    def _windows_hold(self, drift: float) -> bool:
+        """Whether the cached windows absorb ``drift`` more degrees of
+        footprint drift on top of what they have taken since extraction:
+        their margin covers four texels of arc at the cache's level."""
+        h_lvl = self.mip_shapes[self._cache_level or 0][0]
+        return self._window_drift + drift <= 4.0 * (180.0 / h_lvl)
+
+    def _camera_drift_deg(self, old: Optional[Camera],
+                          new: Camera) -> Optional[float]:
+        """Worst-case body-frame footprint drift (degrees) of a camera
+        change, from a 3x3 probe-ray grid hitting the bounding sphere, on
+        the host in float64; None when unmeasurable (no old camera, fov
+        change: a zoom also rescales per-block footprint SPANS, which
+        window sizes cannot absorb)."""
+        if old is new:
+            return 0.0
+        if old is None:
+            return None
+        # tolerance, not exact equality: an fov that round-trips through
+        # float32 (codec, presets) must not silently kill the drag fast
+        # path; a real zoom changes fov by far more than 1e-6 relative
+        if abs(old.fov - new.fov) > 1e-5 * max(abs(new.fov), 1.0):
+            return None
+        r_old = float(np.linalg.norm(np.asarray(old.eye, np.float64)))
+        r_new = float(np.linalg.norm(np.asarray(new.eye, np.float64)))
+        if abs(r_old - r_new) > 1e-9 * max(r_old, 1.0):
+            return None  # dolly rescales footprint spans, like a zoom
+        d0 = camera_mod.probe_hit_dirs(old, self.view_orientation,
+                                       self.height, self.width,
+                                       C.MOON_RADIUS)
+        d1 = camera_mod.probe_hit_dirs(new, self.view_orientation,
+                                       self.height, self.width,
+                                       C.MOON_RADIUS)
+        cos = np.clip(np.sum(d0 * d1, axis=-1), -1.0, 1.0)
+        return float(np.degrees(np.arccos(cos).max()))
 
     def set_view_orientation(self, orientation: str) -> None:
         self.view_orientation = orientation
-        self._camera_changed()
-
-    def _camera_changed(self) -> None:
         self._basis = None
         self._background = None
         self._origins = None
@@ -428,8 +622,12 @@ class MoonScene:
 
     def _sun_state(self) -> tuple[np.ndarray, float]:
         """(unit sun direction in the body frame, solar angular radius),
-        computed on the host."""
-        e = self.ephem
+        computed on the host: reading _fp back from the device would stall
+        the queue mid-step."""
+        return self._sun_state_of(self.ephem)
+
+    @staticmethod
+    def _sun_state_of(e: MoonEphemeris) -> tuple[np.ndarray, float]:
         sun_body = np.asarray(e.rotation_matrix).T @ np.asarray(
             light_mod.calculate_light_pos(e))
         ang = math.asin(C.SUN_RADIUS_KM / e.sun_distance)
@@ -458,17 +656,24 @@ class MoonScene:
 
     def _dispatch_shadow_maps(self, sun_unit: np.ndarray, ang: float) -> dict:
         """Build the shadow (and, as needed, bounce) maps for a sun state
-        without mutating scene state. Returns shadow=(smap, params) and
+        without mutating scene state: the shared scan half of shadow_args
+        and the speculative pose step. Returns shadow=(smap, params);
+        bounce_render (the map the frame should shade with: cached when
+        reused, fresh otherwise, None with indirect light off); and
         bounce/bounce_basis/bounce_key, set only when a fresh pyramid was
-        built."""
+        built (the caller installs them)."""
         slevel = self.shadow_level()
         stex = self.mips[slevel]
         sh_, sw_ = self.mip_shapes[slevel]
         acc = self.shadow_accuracy if self.shadows_on else 1
         sun = torch.as_tensor(np.asarray(sun_unit, np.float32),
                               device=self.device)
-        bounce = bounce_basis = bounce_key = None
+        bounce_render = bounce = bounce_basis = bounce_key = None
         if self.indirect_light:
+            # the bounce field is blurred over >= 2 scan cells, so sun
+            # drifts inside that scale cannot change it perceptibly: reuse
+            # the cached map across small time steps; the shadow factor
+            # map always rebuilds (the terminator's motion IS the feature)
             basis_np = _sun_frame_basis_np(sun_unit)
             reuse = (
                 self._bounce is not None
@@ -480,6 +685,7 @@ class MoonScene:
                 shadow = shadow_scan.build_shadow_map(
                     stex, sh_, sw_, sun, ang, accuracy=acc,
                     h_scale=self.h_scale, h_offset=self.h_offset)
+                bounce_render = self._bounce
             else:
                 smap, params, bmap = shadow_scan.build_shadow_and_bounce(
                     stex, self.alb_lum(slevel), sh_, sw_, sun, ang,
@@ -487,14 +693,15 @@ class MoonScene:
                     h_offset=self.h_offset,
                     n_bounces=self.indirect_bounces)
                 shadow = (smap, params)
-                bounce = bmap
+                bounce_render = bounce = bmap
                 bounce_basis = basis_np
                 bounce_key = (slevel, acc)
         else:
             shadow = shadow_scan.build_shadow_map(
                 stex, sh_, sw_, sun, ang, accuracy=acc,
                 h_scale=self.h_scale, h_offset=self.h_offset)
-        return dict(shadow=shadow, bounce=bounce, bounce_basis=bounce_basis,
+        return dict(shadow=shadow, bounce_render=bounce_render,
+                    bounce=bounce, bounce_basis=bounce_basis,
                     bounce_key=bounce_key)
 
     # ---- rendering -------------------------------------------------------
@@ -509,6 +716,11 @@ class MoonScene:
         ah, aw = self.mip_shapes[alevel]
         grouped = self.backend == "pallas"
         if self._origins is None or self._cache_level != level:
+            # fresh windows: restart the drift budget, like the pose
+            # rebuild of the burst does; otherwise one over-budget camera
+            # move leaves the accumulated drift poisoned and every later
+            # small drag re-extracts the cache
+            self._window_drift = 0.0
             # stride levels available above the render level (q up to 4)
             max_qexp = min(2, len(self.mips) - 1 - level,
                            len(self.albedo_mips) - 1 - alevel)
@@ -533,22 +745,275 @@ class MoonScene:
             self._shadowwin = None  # the sentinel means nothing off the march path
         if self.shadows_on and self._shadowwin is None:
             # the maps depend only on the sun and stay cached across pose
-            # changes; the windows are the geometry-dependent half
+            # changes (shadow_args rebuilds them on time change only); the
+            # windows are the geometry-dependent half
             smap, sparams = self.shadow_args()
-            self._shadowwin = blocked.build_shadow_windows(
-                smap, sparams, geom, bounce_map=self._bounce,
-                grouped=grouped)
-            if grouped and self._packed is not None:
-                swin_p, scal = blocked._pack_sun_parts(
-                    self._wincache, self._origins, self._shadowwin)
-                self._packed = self._packed._replace(swin=swin_p, scal=scal)
+            if grouped:
+                sw, swin_p, scal = blocked.build_shadow_state_from_maps(
+                    smap, sparams, geom, self._wincache, self._origins,
+                    bmap=self._bounce)
+                self._shadowwin = sw
+                if self._packed is None:
+                    # pose changed too: repack the heavy pose tensors
+                    hwin_p, awin_p = blocked.pack_pose_windows(self._wincache)
+                else:
+                    hwin_p, awin_p = self._packed.hwin, self._packed.awin
+                self._packed = blocked.PackedWindows(
+                    hwin=hwin_p, awin=awin_p, swin=swin_p, scal=scal)
             else:
+                self._shadowwin = blocked.build_shadow_windows(
+                    smap, sparams, geom, bounce_map=self._bounce,
+                    grouped=False)
                 self._packed = None
         if grouped and self._packed is None:
+            assert self._shadowwin is not blocked.FUSED_SHADOW_STATE, (
+                "fused shadow state requires the packed windows it lives in")
             self._packed = blocked.pack_windows(
                 self._wincache, self._origins,
                 self._shadowwin if self.shadows_on else None)
         return alevel
+
+    def _dispatch_timestep_scan(self, fp, sun_unit, ang, jitters,
+                                n_samples: int, h: int, w: int,
+                                ah: int, aw: int):
+        """Dispatch the drift-reuse time step for an arbitrary frame-params
+        and sun state, with NO scene mutation: eligibility is indirect
+        light on and the cached bounce map within BOUNCE_ASYNC_MAX_DEG of
+        the given sun frame. Past BOUNCE_REUSE_DEG a bounce_refresh is
+        queued BEHIND the frame (reusing its scan). Returns None when
+        ineligible, else a dict of results + the cache metadata the caller
+        installs via _install_timestep."""
+        if not (self.shadows_on and self.displaced
+                and self.indirect_light and self._bounce is not None
+                and self._bounce_basis is not None):
+            return None
+        slevel = self.shadow_level()
+        acc = self.shadow_accuracy
+        if self._bounce_key != (slevel, acc):
+            return None
+        basis_np = _sun_frame_basis_np(sun_unit)
+        drift = _rotation_angle_deg(basis_np, self._bounce_basis)
+        if drift > BOUNCE_ASYNC_MAX_DEG:
+            return None
+        ncs, nf, nph = shadow_scan._resolution(acc)
+        if drift > BOUNCE_REUSE_DEG \
+                and not shadow_scan.half_grid_ok(ncs, nf, nph):
+            return None  # the refresh needs the half-resolution albedo grid
+        sh_, sw_ = self.mip_shapes[slevel]
+        sun_basis = torch.as_tensor(np.asarray(basis_np, np.float32),
+                                    device=self.device)
+        (accum, hitbuf, swin_p, scal, smap,
+         hs) = blocked.render_timestep_scan_pallas(
+            self.mips[slevel], self._bounce, sun_basis, ang,
+            self._wincache, self._origins, self._packed.hwin,
+            self._packed.awin, self.background(), self.maxmap,
+            self.render_basis(), fp, jitters, self.height, self.width,
+            h, w, self.h_min, ah, aw, sh_, sw_, ncs, nf, nph,
+            n_samples=n_samples, h_scale=self.h_scale,
+            h_offset=self.h_offset, hbound=self._hbound)
+        params = shadow_scan._params(sun_basis, ncs, nf, nph, ang)
+        bounce = bounce_basis = None
+        if drift > BOUNCE_REUSE_DEG:
+            # refresh the bounce map behind the frame: the device renders
+            # the frame first (stream order), the rebuild fills the gap
+            # before the next step, and the scene swaps to the new map on
+            # install so the next merged step reads it
+            bounce = shadow_scan.bounce_refresh(
+                smap, hs, self.alb_lum(slevel), sun_basis,
+                sh_, sw_, ncs, nf, nph, n_bounces=self.indirect_bounces)
+            bounce_basis = basis_np
+        return dict(kind="timestep", accum=accum, hitbuf=hitbuf,
+                    swin=swin_p, scal=scal,
+                    shadow=(smap, params), bounce=bounce,
+                    bounce_basis=bounce_basis, bounce_key=(slevel, acc))
+
+    def _install_timestep(self, r: dict) -> None:
+        """Install a _dispatch_timestep_scan result as the scene's shadow/
+        bounce cache state (the mutation half, split out so a speculative
+        prefetch can defer it to consume time)."""
+        self._shadow = r["shadow"]
+        self._shadow_dirty = False
+        if r["bounce"] is not None:
+            self._bounce = r["bounce"]
+            self._bounce_basis = r["bounce_basis"]
+            self._bounce_key = r["bounce_key"]
+
+    def _dispatch_pose_scan(self, fp, sun_unit, ang, jitters,
+                            n_samples: int, level: int):
+        """Dispatch the full pose-rebuild step (shadow scan + window
+        origins/extraction/repack + burst) for an arbitrary frame state,
+        with NO scene mutation: the speculation used when the predicted
+        window drift says the pose caches will NOT survive the next time
+        step."""
+        h, w = self.mip_shapes[level]
+        alevel = self.albedo_level(level)
+        ah, aw = self.mip_shapes[alevel]
+        if self.shadows_on:
+            sm = self._dispatch_shadow_maps(sun_unit, ang)
+            smap, sparams = sm["shadow"]
+            bounce_render = sm["bounce_render"]
+            bounce, bounce_basis, bounce_key = (
+                sm["bounce"], sm["bounce_basis"], sm["bounce_key"])
+        else:
+            smap = sparams = None
+            bounce_render = bounce = bounce_basis = bounce_key = None
+        max_qexp = min(2, len(self.mips) - 1 - level,
+                       len(self.albedo_mips) - 1 - alevel)
+        (accum, hitbuf, org, cache, hwin_p, awin_p, swin_p,
+         scal, hbound) = blocked.render_pose_pallas(
+            tuple(self.mips[level:level + max_qexp + 1]),
+            tuple(self.albedo_mips[alevel:alevel + max_qexp + 1]),
+            self.slope_maps[level:level + max_qexp + 1],
+            smap, sparams, bounce_render, self.background(),
+            self.maxmap, self.render_basis(), fp, jitters,
+            self.height, self.width, h, w, ah, aw, self.h_min,
+            max_qexp=max_qexp, n_samples=n_samples,
+            use_shadow=self.shadows_on,
+            h_scale=self.h_scale, h_offset=self.h_offset,
+            a_scale=self.a_scale)
+        return dict(kind="pose", accum=accum, hitbuf=hitbuf,
+                    origins=org, wincache=cache, cache_level=level,
+                    hbound=hbound,
+                    packed=blocked.PackedWindows(hwin=hwin_p, awin=awin_p,
+                                                 swin=swin_p, scal=scal),
+                    shadow=(smap, sparams) if self.shadows_on else None,
+                    bounce=bounce, bounce_basis=bounce_basis,
+                    bounce_key=bounce_key)
+
+    def _install_pose_step(self, r: dict) -> None:
+        """Install a _dispatch_pose_scan result (mirrors the mutations of
+        the non-speculative pose branch in render_accumulation_burst +
+        shadow_args)."""
+        if r["shadow"] is not None:
+            self._shadow = r["shadow"]
+        self._shadow_dirty = False
+        if r["bounce"] is not None:
+            self._bounce = r["bounce"]
+            self._bounce_basis = r["bounce_basis"]
+            self._bounce_key = r["bounce_key"]
+        self._origins = r["origins"]
+        self._wincache = r["wincache"]
+        self._cache_level = r["cache_level"]
+        self._window_drift = 0.0
+        self._hbound = r["hbound"]
+        self._packed = r["packed"]
+        self._shadowwin = (blocked.FUSED_SHADOW_STATE
+                           if self.shadows_on else None)
+
+    def _merged_timestep(self, jitters, n_samples: int, h: int, w: int,
+                         ah: int, aw: int):
+        """Run the drift-reuse time step if eligible (shadows dirty +
+        _dispatch_timestep_scan's conditions), so held-key animation never
+        waits on the bounce pyramid. Returns (accum, hitbuf, swin_p, scal)
+        or None (the caller falls back to the split path: shadow maps,
+        then render_timestep_pallas)."""
+        if not self._shadow_dirty:
+            return None
+        sun_unit, ang = self._sun_state()
+        r = self._dispatch_timestep_scan(self._fp, sun_unit, ang, jitters,
+                                         n_samples, h, w, ah, aw)
+        if r is None:
+            return None
+        self._install_timestep(r)
+        return r["accum"], r["hitbuf"], r["swin"], r["scal"]
+
+    # ---- speculative held-key prefetch ------------------------------------
+
+    def _prefetch_token(self, kind: str):
+        """Everything a prefetched time step's validity depends on besides
+        the datetime. A "timestep" speculation additionally depends on the
+        pose/window cache identities it renders through; a "pose"
+        speculation rebuilds those from scratch, so it survives
+        update_view invalidating them (that is its purpose) and depends
+        only on the camera/settings baked into it."""
+        base = (self.brightness, self.shadows_on, self.shadow_accuracy,
+                self.indirect_light, self.view_orientation,
+                id(self.camera), self.parallactic_mode, self.backend,
+                id(self._bounce))
+        if kind == "pose":
+            return base
+        packed = self._packed
+        return base + (id(self._origins), id(self._wincache),
+                       None if packed is None else id(packed.hwin),
+                       self._cache_level)
+
+    def prefetch_time(self, dt_next: datetime) -> bool:
+        """Speculatively dispatch the NEXT time step's scan+render behind
+        the current frame: when the held key delivers update_view(dt_next),
+        the frame is already computed on the device and the step costs
+        only the readback. Returns True when a speculation was dispatched.
+        Mis-speculation is safe: results install only if the next
+        update_view matches the datetime and _prefetch_token."""
+        self._prefetch = None
+        if self.ephem is None or not self.displaced:
+            return False
+        if self.backend != "pallas":
+            return False
+        level = self.mip_level()
+        e = calculate_ephemeris(dt_next, self.config.observer,
+                                self.parallactic_mode)
+        h, w = self.mip_shapes[level]
+        alevel = self.albedo_level(level)
+        ah, aw = self.mip_shapes[alevel]
+        sun_unit, ang = self._sun_state_of(e)
+        # would update_view(dt_next) keep the pose windows? (the window
+        # drift policy of update_view, predicted on the host; a mispredict
+        # is only wasted work, never wrong output)
+        timestep = False
+        if (self._origins is not None and self._packed is not None
+                and self._wincache is not None
+                and self._cache_level == level):
+            timestep = self._windows_hold(_rotation_angle_deg(
+                np.asarray(e.rotation_matrix),
+                np.asarray(self.ephem.rotation_matrix)))
+
+        def dispatch():
+            fp = self._frame_params(e)
+            # n_samples=1 (what the app renders first after a step); its
+            # jitter is deterministically zero, so a consumed prefetch is
+            # bit-exact with the non-speculative burst and consumes no RNG
+            # state
+            jit1 = self._padded_jitters(1)
+            r = None
+            if timestep:
+                r = self._dispatch_timestep_scan(fp, sun_unit, ang, jit1,
+                                                 1, h, w, ah, aw)
+            if r is None:
+                # windows will not survive the step (or no merged-step
+                # eligibility): speculate the FULL pose rebuild
+                r = self._dispatch_pose_scan(fp, sun_unit, ang, jit1, 1,
+                                             level)
+            return r
+
+        r = dispatch()
+        r["dt"] = dt_next
+        r["token"] = self._prefetch_token(r["kind"])
+        # pin the objects whose id()s the token carries: CPython reuses
+        # freed addresses eagerly, so without a live reference a cache
+        # replaced between dispatch and consume could alias a stale token
+        # and install a speculation computed from the old caches
+        r["pins"] = (self.camera, self._bounce, self._origins,
+                     self._wincache, self._packed)
+        self._prefetch = r
+        return True
+
+    def _consume_prefetch(self, n_samples: int):
+        """Install the speculative step's results if they match the
+        scene's current datetime + state token and return (accum, hitbuf);
+        None otherwise."""
+        pf, self._prefetch = self._prefetch, None
+        if (pf is None or n_samples != 1 or not self._shadow_dirty
+                or pf["dt"] != self.dt_local
+                or pf["token"] != self._prefetch_token(pf["kind"])):
+            return None
+        if pf["kind"] == "pose":
+            self._install_pose_step(pf)
+        else:
+            self._install_timestep(pf)
+            self._packed = self._packed._replace(swin=pf["swin"],
+                                                 scal=pf["scal"])
+            self._shadowwin = blocked.FUSED_SHADOW_STATE
+        return pf["accum"], pf["hitbuf"]
 
     def render_accumulation_frame(self):
         """Render one accumulation sample and fold it into the running
@@ -652,9 +1117,27 @@ class MoonScene:
         """All accumulation samples in one burst through the march kernel."""
         if self.ephem is None:
             self.update_view(self.dt_local)
+        if self._flip_ready:
+            # a flip-cache restore just installed a fully-rendered step:
+            # its accumulation is already on the device, so the burst is a
+            # no-op. Consumable flag: explicit re-render requests against
+            # unchanged state (timing loops) still dispatch.
+            self._flip_ready = False
+            if self._accum is not None and self._accum_n >= n_samples:
+                return
         level = self.mip_level()
         h, w = self.mip_shapes[level]
         jitters = self._padded_jitters(n_samples)
+
+        # speculative held-key hit: the step was dispatched behind the
+        # previous frame (prefetch_time); install + take the results. A
+        # pose-kind hit covers the cache-invalid branch too.
+        pf = self._consume_prefetch(n_samples)
+        if pf is not None:
+            self._accum, self._hitbuf = pf
+            self._accum_n = n_samples
+            return
+
         alevel = self.albedo_level(level)
         ah, aw = self.mip_shapes[alevel]
         pose_valid = (self._origins is not None
@@ -663,7 +1146,8 @@ class MoonScene:
         sun_valid = (not self.shadows_on) or (self._shadowwin is not None)
 
         if pose_valid and sun_valid:
-            # nothing structural changed: just the burst
+            # nothing structural changed (e.g. brightness/gamma reset):
+            # just the burst
             sparams = self.shadow_args()[1] if self.shadows_on else None
             accum, hitbuf = blocked.render_accumulate_pallas(
                 self._packed, sparams, self.background(), self.maxmap,
@@ -671,9 +1155,29 @@ class MoonScene:
                 self.width, h, w, self.h_min, ah=ah, aw=aw,
                 n_samples=n_samples, use_shadow=self.shadows_on,
                 hbound=self._hbound)
+        elif pose_valid:
+            # time-step (Q/W) hot path: pose caches valid, only the sun
+            # moved. Drift-reuse steps (bounce map still fresh enough, the
+            # common held-key case) run scan + windows + repack + burst in
+            # one step; bounce-rebuild steps run the shadow map programs,
+            # then windows + repack + burst
+            merged = self._merged_timestep(jitters, n_samples, h, w, ah, aw)
+            if merged is not None:
+                accum, hitbuf, swin_p, scal = merged
+            else:
+                smap, sparams = self.shadow_args()
+                accum, hitbuf, swin_p, scal = blocked.render_timestep_pallas(
+                    smap, sparams, self._bounce, self._wincache,
+                    self._origins, self._packed.hwin, self._packed.awin,
+                    self.background(), self.maxmap, self.render_basis(),
+                    self._fp, jitters, self.height, self.width, h, w,
+                    self.h_min, ah, aw, n_samples=n_samples,
+                    hbound=self._hbound)
+            self._packed = self._packed._replace(swin=swin_p, scal=scal)
+            self._shadowwin = blocked.FUSED_SHADOW_STATE
         else:
-            # pose (or level, or time) changed: origins + extraction +
-            # packing + shadow windows + burst
+            # pose (or level) changed: origins + extraction + packing +
+            # shadow windows + burst
             max_qexp = min(2, len(self.mips) - 1 - level,
                            len(self.albedo_mips) - 1 - alevel)
             if self.shadows_on:
@@ -694,6 +1198,7 @@ class MoonScene:
             self._origins = org
             self._wincache = cache
             self._cache_level = level
+            self._window_drift = 0.0
             self._hbound = hbound
             self._packed = blocked.PackedWindows(
                 hwin=hwin_p, awin=awin_p, swin=swin_p, scal=scal)
@@ -708,3 +1213,95 @@ class MoonScene:
             self.ensure_accumulated(1)
         img = render_mod.tonemap(self._accum, C.TONEMAP_EXPOSURE, self.gamma)
         return img.cpu().numpy()[: self.out_height, : self.out_width]
+
+    # ---- picking ----------------------------------------------------------
+
+    def hit_buffer_host(self) -> np.ndarray:
+        """Host copy of the per-frame hit buffer, transferred ONCE per
+        rendered frame: mouse-motion picking then runs in numpy with no
+        device work (the reference treats picking as latency-critical,
+        renderer_navigation.py:189-192)."""
+        if self._hitbuf is None:
+            self.render_accumulation_frame()
+        if self._hitbuf_host is None or self._hitbuf_src is not self._hitbuf:
+            self._hitbuf_host = self._hitbuf.cpu().numpy()
+            self._hitbuf_src = self._hitbuf
+        return self._hitbuf_host
+
+    # cursor pick window: copied instead of the whole hit buffer (33 MB at
+    # 1080p). 128 px covers mouse motion between frames; re-centers when
+    # the cursor leaves the inner half.
+    PICK_WIN = 128
+
+    def get_hit_at(self, x: int, y: int) -> tuple[float, float, float, float]:
+        """Scene-frame hit position + distance at an image pixel (0
+        distance = miss). Reads the full host copy when one is already
+        resident (tests, parity tools); mouse picking on a fresh frame
+        copies only a PICK_WIN^2 window around the cursor (256 KB, reused
+        while the cursor stays near its center) instead of the whole
+        buffer."""
+        if self._hitbuf is None:
+            self.render_accumulation_frame()
+        y = int(np.clip(y, 0, self.height - 1))
+        x = int(np.clip(x, 0, self.width - 1))
+        if self._hitbuf_host is not None and \
+                self._hitbuf_src is self._hitbuf:
+            v = self._hitbuf_host[y, x]
+            return float(v[0]), float(v[1]), float(v[2]), float(v[3])
+        W = min(self.PICK_WIN, self.height, self.width)
+        win = self._pickwin
+        if win is not None and self._pickwin_src is self._hitbuf:
+            r0, c0 = self._pickwin_origin
+            ry, cx = y - r0, x - c0
+            q = W // 4
+            # inner-half reuse; a margin that is flush against the image
+            # edge counts as satisfied (a window pinned at the border
+            # cannot re-center any further: without this, every pick in a
+            # 32 px edge band re-copied the window per event)
+            row_ok = ((ry >= q or r0 == 0)
+                      and (ry < W - q or r0 == self.height - W)
+                      and 0 <= ry < W)
+            col_ok = ((cx >= q or c0 == 0)
+                      and (cx < W - q or c0 == self.width - W)
+                      and 0 <= cx < W)
+            if row_ok and col_ok:
+                v = win[ry, cx]
+                return float(v[0]), float(v[1]), float(v[2]), float(v[3])
+        r0 = int(np.clip(y - W // 2, 0, self.height - W))
+        c0 = int(np.clip(x - W // 2, 0, self.width - W))
+        self._pickwin = self._hitbuf[r0:r0 + W, c0:c0 + W].cpu().numpy()
+        self._pickwin_origin = (r0, c0)
+        self._pickwin_src = self._hitbuf
+        v = self._pickwin[y - r0, x - c0]
+        return float(v[0]), float(v[1]), float(v[2]), float(v[3])
+
+    def elevation_host(self) -> np.ndarray:
+        """Host copy of an elevation level (unpadded columns, decoded f32),
+        cached once: measurement drags must not copy device mips per mouse
+        event. Uses the shadow-capped level for quantized (multi-gigatexel)
+        maps so the host copy stays small."""
+        lvl = self._capped_level(0) if self.quantized else 0
+        src = self.mips[lvl] if self.mips[lvl] is not None \
+            else self._host_mips[lvl]
+        if self._elev_host is None or self._elev_host_src is not src:
+            m = (src.cpu().numpy() if isinstance(src, torch.Tensor)
+                 else np.asarray(src))[:, : self.mip_shapes[lvl][1]]
+            if self.quantized:
+                m = m.astype(np.float32) * self.h_scale + self.h_offset
+            self._elev_host = m
+            self._elev_host_src = src
+        return self._elev_host
+
+    def elevation_m_at(self, lat: float, lon: float) -> float:
+        """FULL-RESOLUTION elevation (meters vs the reference radius) at a
+        selenographic point: bilinear on the kept host level 0, a pure host
+        read (no device work) at the source data's full resolution.
+        Shares the bilinear/wrap math with interact.measure.elevation_m;
+        only the storage decode differs."""
+        from moonrtx_tpu_torch.interact.measure import elevation_m
+
+        w = self.mip_shapes[0][1]
+        return elevation_m(
+            self._host_mips[0][:, :w], self.radius_scale, lat, lon,
+            scale=self.h_scale if self.quantized else 1.0,
+            offset=self.h_offset if self.quantized else 0.0)

@@ -174,6 +174,12 @@ def _scan_dirs(sun_basis, theta, phi):
             + sun_basis[1][None, None, :] * (st * torch.sin(phi))[..., None])
 
 
+def half_grid_ok(n_coarse: int, n_fine: int, n_phi: int) -> bool:
+    """True when the half-resolution albedo-resample grid exists for this
+    scan resolution (scan_wedge's fast albedo path and bounce_refresh)."""
+    return (n_coarse + n_fine) % 16 == 0 and n_phi % 128 == 0
+
+
 def resample_alb_half(alb_lum, sun_basis, h: int, w: int, n_coarse: int,
                       n_fine: int, n_phi_total: int, phi0, n_phi: int):
     """Albedo-luminance on the scan grid via a half-resolution resample +
@@ -264,7 +270,7 @@ def scan_wedge(tex, sun_basis, sun_ang_radius: float, h: int, w: int,
         factor = _running_max_factor(hs, st, ct, sun_ang_radius)
     if alb_lum is None:
         return (factor, hs) if return_heights else factor
-    if blocked_resample and n_theta % 16 == 0 and n_phi % 128 == 0:
+    if blocked_resample and half_grid_ok(n_coarse, n_fine, n_phi):
         alb_s = resample_alb_half(alb_lum, sun_basis, h, w, n_coarse,
                                   n_fine, n_phi_total, phi0, n_phi)
     elif blocked_resample:
@@ -512,3 +518,21 @@ def shadow_lookup(shadow_map, params: ShadowMapParams, p_body):
     val = sampler.gather_bilinear(shadow_map, row, col)
     # beyond the scanned band it is deep night side
     return torch.where(theta >= THETA_MAX_DEG, 0.0, val)
+
+
+def bounce_refresh(smap, hs, alb_lum, sun_basis, h: int, w: int,
+                   n_coarse: int, n_fine: int, n_phi: int,
+                   n_bounces: int = 1):
+    """Rebuild the one-bounce irradiance map from an already-scanned
+    (smap, hs) pair: the half-resolution albedo resample (K4 on the f32
+    luminance) and the bounce pyramid. Queued behind a rendered frame when
+    the sun drifts past the reuse threshold (engine/scene.py
+    BOUNCE_REUSE_DEG), it reuses that frame's scan instead of a second one.
+
+    Requires half_grid_ok(n_coarse, n_fine, n_phi)."""
+    alb_s = resample_alb_half(alb_lum, sun_basis, h, w, n_coarse, n_fine,
+                              n_phi, 0, n_phi)
+    factor = smap[:, :n_phi]
+    bounce = bounce_from_parts(hs, factor, alb_s, n_coarse, n_fine, n_phi,
+                               n_bounces=n_bounces)
+    return torch.cat([bounce, bounce[:, :PHI_PAD]], dim=1)

@@ -402,3 +402,75 @@ def test_scene_renders_through_the_kernels(cuda):
         both = (k_out[3] > 0.5) & (p_out[3] > 0.5)
         for i in range(4, 8):
             assert (k_out[i] - p_out[i]).abs()[both].max().item() < 5e-2
+
+
+def _session_scene(seed=5):
+    """A small march-path scene on the card, shadows and bounce light on."""
+    from moonrtx_tpu_torch.config import RenderConfig
+    from moonrtx_tpu_torch.data.synth import synthesize_moon
+    from moonrtx_tpu_torch.engine.scene import MoonScene
+    from moonrtx_tpu_torch.types import Observer
+
+    elev, albedo = synthesize_moon(360, 720, seed=seed, n_craters=150)
+    rs = float(elev.max())
+    cfg = RenderConfig(
+        observer=Observer(50.06, 19.94, 219),
+        dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
+        width=256, height=144, shadow_accuracy=4, backend="pallas",
+    ).validate()
+    s = MoonScene(cfg, (elev / rs).astype(np.float32), rs, albedo, None)
+    s.update_view()
+    s.render(1)
+    return s
+
+
+@pytest.mark.parametrize("minutes", [15, 360], ids=["timestep", "pose"])
+def test_prefetch_on_card_is_bit_exact(cuda, minutes):
+    """A consumed speculation gives the frame and hit buffer of the same
+    step rendered without it."""
+    from datetime import timedelta
+
+    spec, plain = _session_scene(), _session_scene()
+    t1 = spec.dt_local + timedelta(minutes=minutes)
+    assert spec.prefetch_time(t1)
+    pf = spec._prefetch
+    for s in (spec, plain):
+        s.update_view(t1)
+    img_s, img_p = spec.render(1), plain.render(1)
+    assert spec._accum is pf["accum"]
+    assert np.array_equal(img_s, img_p)
+    assert torch.equal(spec._hitbuf, plain._hitbuf)
+
+
+def test_flip_hit_launches_no_kernel(cuda):
+    from datetime import timedelta
+
+    s = _session_scene()
+    t0 = s.dt_local
+    img0 = s.display()
+    s.update_view(t0 + timedelta(minutes=15))
+    s.render(1)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    with kernels.recording() as calls:
+        s.update_view(t0)
+        assert s.last_flip_hit
+        img = s.render(1)
+    assert calls == [] and kernels.launch_counts() == before
+    assert np.array_equal(img, img0)
+
+
+def test_missed_speculation_leaves_the_step_unchanged(cuda):
+    """A speculation for another datetime is dropped by the step and
+    leaves nothing behind: the frame equals the unspeculated step's."""
+    from datetime import timedelta
+
+    spec, plain = _session_scene(), _session_scene()
+    t1 = spec.dt_local + timedelta(minutes=15)
+    assert spec.prefetch_time(t1 + timedelta(minutes=15))
+    for s in (spec, plain):
+        s.update_view(t1)
+    assert spec._prefetch is None
+    img_s, img_p = spec.render(1), plain.render(1)
+    assert np.array_equal(img_s, img_p)
+    assert torch.equal(spec._hitbuf, plain._hitbuf)

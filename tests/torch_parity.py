@@ -6,9 +6,9 @@ Pallas kernels wrapped with ``interpret=True``. The jitted programs that
 baked in the other path are cleared on entry and again on exit, so the
 reference package is left as it was found.
 
-Importing this module also starts PyTorch's CPU thread pool (see
-``_start_torch_threads``), so every test file that compares frames
-imports it.
+Importing this module also pins PyTorch to one CPU thread and starts
+its thread pool (see ``_start_torch_threads``), so every test file that
+compares frames imports it.
 
 ``shadow_hard_case``, ``resample_hard_case`` and ``extract_hard_case``
 are the one numpy generator of the inputs a wrong split of a kernel's
@@ -31,7 +31,15 @@ from moonrtx_tpu_torch.hard_cases import (  # noqa: F401  (for the tests)
 
 
 def _start_torch_threads():
-    """Run one parallel reduction before any test computes with torch.
+    """Pin PyTorch to one CPU thread, then run one reduction before any
+    test computes with torch.
+
+    The suite runs in several worker processes on one host. Each
+    process's own pool of one thread per core then oversubscribes the
+    cores, and the small operations these tests issue by the thousand
+    wait on each other's threads: a scene test that takes 7 s alone took
+    over 14 minutes with five more processes beside it, and 26 s with one
+    thread a process.
 
     The first parallel region of a process starts PyTorch's CPU thread
     pool. On some hosts the operation that follows that first reduction
@@ -41,6 +49,7 @@ def _start_torch_threads():
     on a later call, which bends the ray directions of the first frame a
     process renders by far more than any tolerance here. One throwaway
     reduction absorbs it."""
+    torch.set_num_threads(1)
     w = torch.ones(256, 256, 3)
     torch.sqrt(torch.sum(w * w, dim=-1, keepdim=True))
 

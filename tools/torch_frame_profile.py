@@ -84,7 +84,10 @@ def main(argv=None) -> int:
     print(f"# first frame (process cold): {first:.1f} ms")
 
     def step():
+        # a time step with the pose caches and the bounce map dropped (a
+        # one-minute step alone keeps the windows: drift reuse)
         scene.update_view(scene.dt_local + timedelta(minutes=1))
+        scene.set_view_orientation(scene.view_orientation)
         scene._bounce = None
 
     for rep in range(3):

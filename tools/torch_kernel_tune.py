@@ -159,7 +159,7 @@ def extract_kernels(tag: str, reps: int, synth_shape: str,
         scene.render(1)
     k1 = [c for n, c in calls if n == "extract_group_windows"]
     scene.backend = "blocked"
-    scene.set_camera(scene.camera)
+    scene.set_view_orientation(scene.view_orientation)  # drop pose caches
     with kernels.recording() as calls:
         scene.render(1)
     k5 = [c for n, c in calls if n == "extract_level_windows"]
