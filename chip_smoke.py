@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--synth-shape 11520x23040] [--out chip_smoke_out]
 
-Drives the port's two main paths once each, and the interactive session
-on the first, as a user would: 1920x1080,
+Drives the port's two main paths once each, the interactive session on
+the first, and the command line, as a user would: 1920x1080,
 shadow accuracy 10, indirect light, eclipse shading and earthshine on, on
 a synthetic LOLA-sized map (int16 heights, uint8 albedo;
 ``--synth-shape 23040x46080`` is the full benchmark size): the march-kernel
@@ -69,7 +69,20 @@ Phases, each fatal on failure:
    taken on until the next step would overrun the windows' drift budget,
    agree with the same view rendered from cold pose caches and a fresh
    bounce map, within phase 3b's bounds; (d) picks through the 128x128 window equal the full
-   host hit buffer, and a centre pick and a measurement are finite.
+   host hit buffer, and a centre pick and a measurement are finite;
+7. the CLI on the card, once phase 3's scene is freed: ``python -m
+   moonrtx_tpu_torch`` as a user types it, three times, on the same map
+   and caches: a still frame (auto backend, so the blocked path, 8
+   samples, two bounces, ``--devices 0``), a 4-frame time-lapse on the
+   march path (32 samples, 15-minute steps) and the still frame with no
+   card visible. Checks: the first two exit 0 and name the card, every
+   PNG is 1920x1080x3 uint8 with the Moon on 20-90% of it, the
+   time-lapse's first frame agrees with phase 3's frame within phase 3b's
+   bounds (the flags give phase 3's configuration), successive frames
+   differ, and the run without a card exits non-zero having saved
+   nothing. ``# cli:`` lines give each run's wall time and peak host RSS,
+   and the intervals between the time-lapse's saves beside one time step
+   and one PNG save timed alone.
 
 The second-to-last line of standard output is the card's name and power
 limit, and the one before it the ``kernels`` JSON; the last line is the
@@ -80,10 +93,12 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -774,6 +789,220 @@ def session_phase(scene) -> None:
             fail(f"kernel {name} was not launched in the session")
 
 
+def timelapse_frame_ms(scene, img, out_dir: str) -> tuple[list, float]:
+    """What one time-lapse frame costs on its own, for phase 7 to hold the
+    interval between saves against: three 15-minute time steps, each with
+    a 32-sample burst on the march path, from the phase-3 view
+    (synchronised, ms each), and the mean of two PNG saves of a 1080p
+    frame (ms)."""
+    from datetime import timedelta
+
+    import torch
+
+    from moonrtx_tpu_torch.app import headless
+
+    scene.backend = "pallas"
+    scene.set_view_orientation(scene.view_orientation)
+    scene._prefetch = None
+    scene._flip_cache = None
+    scene.update_view(scene.config.dt_local)
+    scene.ensure_accumulated(SAMPLES)
+    torch.cuda.synchronize()
+    steps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        scene.update_view(scene.dt_local + timedelta(minutes=15))
+        scene.ensure_accumulated(SAMPLES)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    saves = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        headless.save_image(img, os.path.join(out_dir, "save_probe.png"))
+        saves.append((time.perf_counter() - t0) * 1e3)
+    return steps, sum(saves) / len(saves)
+
+
+def peak_rss_kb(pid: int, seen: int) -> int:
+    """The larger of ``seen`` and process pid's resident set now or at its
+    high-water mark (/proc: VmHWM and VmRSS where the kernel gives them,
+    and statm's resident pages), in KiB."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith(("VmHWM:", "VmRSS:")):
+                    seen = max(seen, int(line.split()[1]))
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        with open(f"/proc/{pid}/statm") as f:
+            pages = int(f.read().split()[1])
+        seen = max(seen, pages * os.sysconf("SC_PAGE_SIZE") // 1024)
+    except (OSError, ValueError, IndexError):
+        pass
+    return seen
+
+
+def run_cli(flags: list, here: str, env: dict, timeout_s: float) -> dict:
+    """Run ``python -m moonrtx_tpu_torch`` with ``flags`` from ``here``:
+    its exit code, wall seconds, output lines each with the seconds since
+    the start at which it arrived, and its peak host RSS in GiB, read from
+    /proc every 20 ms while it runs (None where /proc gives none; a
+    child's rusage would count this process's own RSS at the fork)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "moonrtx_tpu_torch", *flags], cwd=here,
+        env={**env, "PYTHONUNBUFFERED": "1"}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    timer = threading.Timer(timeout_s, proc.kill)
+    timer.start()
+    peak_kb = [0]
+
+    def watch():
+        while proc.poll() is None:
+            peak_kb[0] = peak_rss_kb(proc.pid, peak_kb[0])
+            time.sleep(0.02)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    lines = [(time.perf_counter() - t0, line.rstrip("\n"))
+             for line in proc.stdout]
+    proc.wait()
+    timer.cancel()
+    watcher.join()
+    return dict(rc=proc.returncode, wall_s=time.perf_counter() - t0,
+                lines=lines, rss_gib=peak_kb[0] / 2**20 or None)
+
+
+def read_png(path: str):
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def moon_share(img) -> float:
+    """Share of the frame brighter than 8 levels: the Moon, whose night
+    side earthshine lifts above that, while the star background stays
+    below it on all but a few pixels."""
+    return float((img.max(axis=-1) > 8).mean())
+
+
+def cli_phase(cfg, img, kind: str, step_ms: list, save_ms: float,
+              here: str, out_dir: str) -> None:
+    """Phase 7: the CLI on the card, three runs of ``python -m
+    moonrtx_tpu_torch`` as a user types them: a still frame on the blocked
+    path (auto backend, two bounces, --devices 0), a 4-frame time-lapse on
+    the march path, and the still frame with no card visible. Fails on any
+    check; prints each run's wall time and peak host RSS and the interval
+    between the time-lapse's saves."""
+    import dataclasses
+
+    import numpy as np
+
+    from moonrtx_tpu_torch.app import cli
+
+    def say(msg: str) -> None:
+        print(f"# cli: {msg}", flush=True)
+
+    th, tw = cfg.synth_shape
+    base = ["--lat", "50.06", "--lon", "19.94", "--elevation", "219",
+            "--time", "2024-04-15T21:00:00Z", "--synth-shape", f"{th}x{tw}",
+            "--downscale", "1", "--shadow-accuracy", "10", "--devices", "0",
+            "--headless", "--no-download"]
+    still = base + ["--accumulation-frames", "8", "--indirect-bounces", "2",
+                    "--save", os.path.join(out_dir, "cli_still.png")]
+    timelapse = base + ["--backend", "pallas", "--accumulation-frames", "32",
+                        "--indirect-bounces", "1", "--timelapse-frames", "4",
+                        "--save", os.path.join(out_dir, "cli_tl.png")]
+    nocard = base + ["--accumulation-frames", "8", "--indirect-bounces", "2",
+                     "--save", os.path.join(out_dir, "cli_nocard.png")]
+    # the time-lapse's first frame is phase 3's frame: the configuration
+    # its flags give must be phase 3's, the data files (absent here, so
+    # None) and devices (0: every local device, one here) aside
+    tl_cfg = cli.config_from_args(cli.parse_args(timelapse))
+    tl_cfg = dataclasses.replace(tl_cfg, devices=1)
+    for field in dataclasses.fields(cfg):
+        a, b = getattr(tl_cfg, field.name), getattr(cfg, field.name)
+        if a != b and not field.name.endswith("_file"):
+            fail(f"cli: the time-lapse flags give {field.name}={a!r}, "
+                 f"phase 3 renders {b!r}")
+    for name in os.listdir(out_dir):
+        if name.startswith("cli_"):
+            os.remove(os.path.join(out_dir, name))
+    env = {k: v for k, v in os.environ.items() if k != "MOONRTX_PLATFORM"}
+    runs = {}
+    for name, flags, extra in (("still", still, {}),
+                               ("timelapse", timelapse, {}),
+                               ("nocard", nocard,
+                                {"CUDA_VISIBLE_DEVICES": ""})):
+        r = run_cli(flags, here, {**env, **extra}, 400)
+        runs[name] = r
+        with open(os.path.join(out_dir, f"cli_{name}.log"), "w") as f:
+            f.writelines(f"{t:9.3f} {line}\n" for t, line in r["lines"])
+        rss = ("not measured" if r["rss_gib"] is None
+               else f"{r['rss_gib']:.2f} GiB")
+        say(f"{name}: exit {r['rc']}, wall {r['wall_s']:.2f} s, peak host "
+            f"RSS {rss}")
+        if name != "nocard" and r["rc"] != 0:
+            tail = "\n".join(line for _, line in r["lines"][-30:])
+            fail(f"cli: the {name} run exited {r['rc']}:\n{tail}")
+        if name != "nocard":
+            acc = [line for _, line in r["lines"]
+                   if line.startswith("Accelerator: cuda (")]
+            say(f"{name}: {acc}")
+            if len(acc) != 1 or kind not in acc[0]:
+                fail(f"cli: the {name} run names no card {kind!r}")
+
+    frames = {"still": read_png(os.path.join(out_dir, "cli_still.png"))}
+    for i in range(4):
+        frames[f"tl{i}"] = read_png(os.path.join(out_dir,
+                                                 f"cli_tl_{i:04d}.png"))
+    for name, f in frames.items():
+        share = moon_share(f)
+        say(f"{name}: {f.shape} {f.dtype}, Moon covers {share:.4f}")
+        if f.shape != (1080, 1920, 3) or f.dtype != np.uint8:
+            fail(f"cli: {name} is {f.shape} {f.dtype}")
+        if not 0.2 <= share <= 0.9:
+            fail(f"cli: the Moon covers {share} of {name}")
+    # frame 0 against phase 3's march frame: the same view, map, backend
+    # and samples; a PNG has no hit buffer, so the Moon masks stand in
+    st = frame_diff(frames["tl0"], img, frames["tl0"].max(axis=-1) > 8,
+                    img.max(axis=-1) > 8)
+    d_max = int(np.abs(frames["tl0"].astype(int) - img.astype(int)).max())
+    say(f"time-lapse frame 0 against phase 3's march frame: mean |d| "
+        f"{st['mean']:.4f}, p99 |d| {st['p99']:.1f}, share beyond 8 levels "
+        f"{st['over8']:.5f}, Moon-mask agreement {st['hits']:.5f}, max |d| "
+        f"{d_max} (tolerance: {FRAME_BOUNDS})")
+    if not within_frame_bounds(st):
+        fail("cli: time-lapse frame 0 disagrees with phase 3's frame")
+    for i in range(1, 4):
+        a, b = frames[f"tl{i - 1}"], frames[f"tl{i}"]
+        moved = float((a != b).any(axis=-1).mean())
+        say(f"time-lapse frames {i - 1} -> {i}: {moved:.5f} of the pixels "
+            f"changed, mean |d| {np.abs(a.astype(int) - b).mean():.4f}")
+        if moved == 0.0:
+            fail(f"cli: time-lapse frames {i - 1} and {i} are equal")
+    saved = [t for t, line in runs["timelapse"]["lines"]
+             if line.startswith("Saved: ")]
+    if len(saved) != 4:
+        fail(f"cli: the time-lapse printed {len(saved)} Saved: lines")
+    gaps = [round((b - a) * 1e3, 1) for a, b in zip(saved, saved[1:])]
+    say(f"time-lapse: first save at {saved[0]:.2f} s, intervals between "
+        f"saves {gaps} ms; one 15-minute step with a 32-sample burst alone "
+        f"{[round(v, 1) for v in step_ms]} ms, one 1080p PNG save "
+        f"{save_ms:.1f} ms")
+    r = runs["nocard"]
+    said = [line for _, line in r["lines"]
+            if line.startswith(("Error", "Saved:"))]
+    written = [n for n in os.listdir(out_dir) if n.startswith("cli_nocard")
+               and not n.endswith(".log")]
+    say(f"no card: exit {r['rc']}, {said}, files {written}")
+    if r["rc"] == 0 or any(line.startswith("Saved:") for line in said) \
+            or written:
+        fail("cli: the run without a card did not refuse to render")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--synth-shape", default="11520x23040",
@@ -1213,6 +1442,13 @@ def main(argv=None) -> int:
     # ---- 6. the interactive session ----------------------------------------
     print(f"# session: card {card}", flush=True)
     session_phase(scene)
+
+    # ---- 7. the CLI on the card ------------------------------------------
+    step_ms, save_ms = timelapse_frame_ms(scene, img, out_dir)
+    del scene, accum, calls, calls_blocked, picked, hcall, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_phase(cfg, img, kind, step_ms, save_ms, here, out_dir)
 
     print(json.dumps({"kernels": report}))
     print(card)

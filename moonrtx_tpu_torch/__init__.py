@@ -21,7 +21,11 @@ backend (the default), the march-kernel "pallas" backend and the gather
 * ``ops.march_shade.march_shade``         (csrc/march_shade.cu)
 
 Entry points run on the card unless the caller passes ``device="cpu"``
-(moonrtx_tpu_torch.device).
+(moonrtx_tpu_torch.device). The reference's single-device entry points
+are here too: ``python -m moonrtx_tpu_torch`` (app.cli: the headless
+still and time-lapse, the Tk window) and the Tk launcher
+``python -m moonrtx_tpu_torch.app.launcher``; ``MOONRTX_PLATFORM=cpu``
+asks the CLI for the CPU.
 """
 
 __version__ = "0.1.0"

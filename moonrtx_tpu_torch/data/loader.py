@@ -12,7 +12,8 @@ Reproduces the reference's processing semantics (data_loader.py):
 
 When a source file is absent the loaders fall back to procedural synthesis
 (moonrtx_tpu_torch.data.synth) instead of aborting, so the framework is fully
-functional without the ~9 GB download.
+functional without the ~9 GB download. The block-mean hot loop can use the
+native C++ path (moonrtx_tpu_torch.native) when it builds.
 """
 
 from __future__ import annotations
@@ -30,6 +31,15 @@ SYNTH_CACHE_DIR = os.environ.get(
     "MOONRTX_TPU_CACHE", os.path.join(os.path.expanduser("~"), ".cache", "moonrtx_tpu")
 )
 SYNTH_ELEVATION_SHAPE = (2880, 5760)
+
+
+def _native_block_mean(a: np.ndarray, factor: int) -> np.ndarray:
+    """Use the multithreaded C++ downscaler when available."""
+    try:
+        from moonrtx_tpu_torch.native import bindings
+        return bindings.block_mean_int16(a, factor)
+    except Exception:
+        return block_mean(a.astype(np.float32), factor)
 
 
 def _synth_cache(name: str, maker, *shape_args) -> np.ndarray:
@@ -252,7 +262,7 @@ def _load_elevation_file(filepath: str, downscale: int) -> tuple[np.ndarray, flo
     if downscale == 1:
         elevation = src.astype(np.float32) * scale
     else:
-        elevation = block_mean(src.astype(np.float32), downscale) * scale
+        elevation = _native_block_mean(src, downscale) * scale
     del src
 
     elevation += 1.0

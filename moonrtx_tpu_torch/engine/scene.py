@@ -28,7 +28,8 @@ frame past BOUNCE_REUSE_DEG (render_accumulation_burst); the step just
 left is kept for a Q/W direction flip (the flip cache); and the next
 held-key step can be dispatched ahead (prefetch_time), in stream order
 behind the frame. Picking and measurement read small host copies
-(get_hit_at, elevation_m_at). The device mesh and banded uploads come in
+(get_hit_at, elevation_m_at). The maps go up in row bands
+(_upload_rows_banded). The device mesh and the band-sharded maps come in
 a later slice.
 """
 
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import math
 import time as _time
+import warnings
 from datetime import datetime
 from typing import Optional
 
@@ -46,7 +48,8 @@ from moonrtx_tpu_torch import constants as C
 from moonrtx_tpu_torch.astro import calculate_ephemeris
 from moonrtx_tpu_torch.config import RenderConfig
 from moonrtx_tpu_torch.data.mips import pad_lon_wrap, select_level
-from moonrtx_tpu_torch.data.pyramids import PAD_COLS, QUANTIZE_TEXELS, load_or_build
+from moonrtx_tpu_torch.data.pyramids import (
+    PAD_COLS, QUANTIZE_TEXELS, _drop_mmap_pages, load_or_build)
 from moonrtx_tpu_torch.device import resolve_device
 from moonrtx_tpu_torch.engine import blocked
 from moonrtx_tpu_torch.engine import camera as camera_mod
@@ -145,8 +148,39 @@ def _render_background(starmap, basis: CameraBasis, height: int, width: int):
     return sampler.gather_bilinear(starmap, row, col)
 
 
-def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+# Host->device transfers go in row bands of this many bytes: a whole-level
+# copy stages a full-size host array beside its memory-mapped source, about
+# 2 GB more host peak RSS at the 23040x46080 working set
+# (tools/torch_upload_rss.py).
+UPLOAD_BAND_BYTES = 256 << 20
+
+
+def _upload_rows_banded(m: np.ndarray, device,
+                        band_bytes: int = UPLOAD_BAND_BYTES) -> torch.Tensor:
+    """Upload a host array in row bands into one tensor allocated up
+    front, so the host stages at most one band, and drop the source's
+    mmap pages as the bands go.
+
+    The reference syncs every fourth band because JAX dispatch is
+    asynchronous and keeps each in-flight band's host copy alive. Here a
+    copy from pageable host memory returns only once the band is staged
+    (PyTorch synchronises the stream after a blocking host-to-device
+    copy), so no band is in flight and the pages are dropped after every
+    band. On the CPU the result owns its memory: it never aliases a
+    read-only mmap."""
+    rows = int(m.shape[0])
+    row_bytes = max(m.nbytes // max(rows, 1), 1)
+    rb = max(int(band_bytes // row_bytes), 1)
+    dtype = torch.from_numpy(np.empty(0, m.dtype)).dtype
+    out = torch.empty(m.shape, dtype=dtype, device=device)
+    for r0 in range(0, rows, rb):
+        with warnings.catch_warnings():
+            # a band of a read-only mmap: copy_ only reads it
+            warnings.simplefilter("ignore", UserWarning)
+            band = torch.from_numpy(np.ascontiguousarray(m[r0:r0 + rb]))
+        out[r0:r0 + rb].copy_(band)
+        _drop_mmap_pages(m)
+    return out
 
 
 class MoonScene:
@@ -161,9 +195,17 @@ class MoonScene:
         self.device = resolve_device(device)
         self.config = config
         self.radius_scale = float(radius_scale)
-        if int(getattr(config, "devices", 1)) != 1:
+        # devices=0 means every local device, as in the reference; one
+        # device builds no mesh
+        n_dev = int(getattr(config, "devices", 1))
+        if n_dev == 0:
+            n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
+                     else 1)
+        if n_dev > 1:
             raise NotImplementedError(
-                "multi-device rendering is not ported yet")
+                f"devices={n_dev}: multi-device rendering (the reference's "
+                "parallel/ package, the scene's mesh and banded paths) is "
+                "not ported yet; pass devices=1")
         quant = config.quantize
         if quant == "auto":
             quant = ("i16" if elevation.shape[0] * elevation.shape[1]
@@ -186,11 +228,12 @@ class MoonScene:
         host_alb = [ps.albedo_kept[0]] * ps.alb_min_level + list(
             ps.albedo_kept)
         self._install(
-            mips=[_to_device(m, self.device) for m in ps.mips],
+            mips=[_upload_rows_banded(m, self.device) for m in ps.mips],
             albedo_mips=self._upload_aliased(host_alb),
-            maxmap=_to_device(ps.maxmap, self.device),
-            slope_maps=_to_device(ps.slope_maps, self.device),
-            starmap=(_to_device(pad_lon_wrap(starmap, PAD_COLS), self.device)
+            maxmap=_upload_rows_banded(ps.maxmap, self.device),
+            slope_maps=_upload_rows_banded(ps.slope_maps, self.device),
+            starmap=(_upload_rows_banded(pad_lon_wrap(starmap, PAD_COLS),
+                                         self.device)
                      if starmap is not None else None),
             h_min=ps.h_min, h_scale=ps.h_scale, h_offset=ps.h_offset,
             a_scale=ps.a_scale, alb_min_level=ps.alb_min_level)
@@ -256,7 +299,7 @@ class MoonScene:
         out = []
         for a in host_alb:  # aliased head slots upload once
             if id(a) not in uploaded:
-                uploaded[id(a)] = _to_device(a, self.device)
+                uploaded[id(a)] = _upload_rows_banded(a, self.device)
             out.append(uploaded[id(a)])
         return out
 

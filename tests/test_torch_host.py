@@ -39,8 +39,13 @@ def _imports(path: Path):
 def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "moonrtx_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    files.append(ROOT / "tools" / "torch_frame_profile.py")
+    files += sorted((ROOT / "tools").glob("torch_*.py"))
     assert len(files) > 30
+    # the entry points and host modules a user starts the port through
+    for module in ("__main__.py", "app/cli.py", "app/window.py",
+                   "app/launcher.py", "app/presets.py", "app/headless.py",
+                   "utils/log.py", "native/bindings.py"):
+        assert ROOT / "moonrtx_tpu_torch" / module in files, module
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
