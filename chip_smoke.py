@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--synth-shape 11520x23040] [--out chip_smoke_out]
 
 Drives the port's two main paths once each, the interactive session on
-the first, and the command line, as a user would: 1920x1080,
+the first, the command line and the 4-device mesh, as a user would:
+1920x1080,
 shadow accuracy 10, indirect light, eclipse shading and earthshine on, on
 a synthetic LOLA-sized map (int16 heights, uint8 albedo;
 ``--synth-shape 23040x46080`` is the full benchmark size): the march-kernel
@@ -75,14 +76,33 @@ Phases, each fatal on failure:
    and caches: a still frame (auto backend, so the blocked path, 8
    samples, two bounces, ``--devices 0``), a 4-frame time-lapse on the
    march path (32 samples, 15-minute steps) and the still frame with no
-   card visible. Checks: the first two exit 0 and name the card, every
-   PNG is 1920x1080x3 uint8 with the Moon on 20-90% of it, the
-   time-lapse's first frame agrees with phase 3's frame within phase 3b's
-   bounds (the flags give phase 3's configuration), successive frames
-   differ, and the run without a card exits non-zero having saved
-   nothing. ``# cli:`` lines give each run's wall time and peak host RSS,
-   and the intervals between the time-lapse's saves beside one time step
-   and one PNG save timed alone.
+   card visible, and the still frame with ``--devices 4``. Checks: the
+   first two exit 0 and name the card, every PNG is 1920x1080x3 uint8
+   with the Moon on 20-90% of it, the time-lapse's first frame agrees
+   with phase 3's frame within phase 3b's bounds (the flags give phase
+   3's configuration), successive frames differ, the run without a card
+   exits non-zero having saved nothing, and ``--devices 4`` on a host
+   with fewer cards exits non-zero naming them (on four cards it
+   renders). ``# cli:`` lines give each run's wall time and peak host
+   RSS, and the intervals between the time-lapse's saves beside one time
+   step and one PNG save timed alone;
+8. the mesh (``moonrtx_tpu_torch.parallel``) on phase 3's configuration:
+   4 logical devices on the one card (``make_mesh(4, virtual=True)``),
+   or four cards where the host has them. 8a: a cold 32-sample frame
+   through the strip programs and the phi-wedge scan, with exactly the
+   launches the strips, wedges and groups imply (MESH_COLD_LAUNCHES), no
+   single-device scan fallback, and the frame within phase 3b's bounds
+   of phase 3's; 8b: four 15-minute Q/W steps through Session on the
+   kept windows, a consumed speculation, a flip and a brightness reset
+   (K2 alone), each frame within those bounds of the same view from cold
+   caches; 8c: the render level band-sharded (a small
+   ``hbm_budget_gb``, the camera at MESH_BAND_ZOOM of its distance so
+   the render level is one the plan may band), its frame against the
+   replicated frame of the same view; each kernel at the new shapes (K3
+   and K4 on phi wedge 1, K2 on strip 0, K1 on device 1's band-local
+   extraction) against its plain version. ``# mesh:`` lines give the
+   cold frames and a kept-windows step in ms and the peak device memory
+   of each part, labelled with the devices.
 
 The second-to-last line of standard output is the card's name and power
 limit, and the one before it the ``kernels`` JSON; the last line is the
@@ -155,6 +175,27 @@ EARLIER_MS = {"shadow_factor": 0.7888, "resample_group_windows": 0.1700,
               "extract_group_windows": 0.2362,
               "extract_level_windows": 0.6027}
 PER_POSE = ("extract_level_windows",)   # EARLIER_MS entries per pose
+
+
+MESH_DEVICES = 4
+# launches of one cold 32-sample frame on phase 3's configuration over the
+# mesh, replicated (8a) or banded (8c): per phi wedge the scan's K4 twice
+# (heights; the bounce map's albedo at half resolution) and K3 once; K1
+# three times per strip (heights, albedo, shadow|bounce; banded, the first
+# two are each device's band-local extraction for the whole frame); K2
+# once per sample and strip; no K5
+MESH_COLD_LAUNCHES = {"resample_group_windows": 2 * MESH_DEVICES,
+                      "shadow_factor": MESH_DEVICES,
+                      "extract_group_windows": 3 * MESH_DEVICES,
+                      "march_shade": SAMPLES * MESH_DEVICES,
+                      "extract_level_windows": 0}
+MESH_BAND_BUDGET_GB = 0.01     # 8c: small enough to band the render level
+# 8c's camera, at this share of phase 3's distance: the render level is
+# then the 5760-row level 1 of the 11520-row map, which the band plan may
+# band, with the shadow scan on level 2 (at phase 3's view the render
+# level, 1440 rows, is also the scan's level, which stays replicated by
+# design: engine/scene.py _plan_bands)
+MESH_BAND_ZOOM = 0.35
 
 
 def fail(msg: str) -> None:
@@ -789,6 +830,223 @@ def session_phase(scene) -> None:
             fail(f"kernel {name} was not launched in the session")
 
 
+def mesh_phase(cfg, img3, hit3, card: str, out_dir: str) -> None:
+    """Phase 8: the mesh on the card, on phase 3's configuration: 4
+    logical devices on cuda:0 when the host has fewer than four cards,
+    four cards otherwise. 8a a cold frame through the strip programs
+    against phase 3's frame, with the launch counts MESH_COLD_LAUNCHES;
+    8b the interactive session (four 15-minute Q/W steps on the kept
+    windows, a consumed speculation, a flip, a brightness reset), each
+    frame against the same view from cold caches; 8c the same scene with
+    the render level band-sharded against 8a's frame; each kernel at the
+    new shapes (K3/K4 on wedge 1, K2 on one strip, K1 on one device's
+    band-local extraction) against its plain version. Fails on any
+    check; times and peak memory are recorded, not bounded."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from moonrtx_tpu_torch import kernels
+    from moonrtx_tpu_torch.app import headless
+    from moonrtx_tpu_torch.app.session import Session
+    from moonrtx_tpu_torch.data.features import load_moon_features
+    from moonrtx_tpu_torch.engine import scene as scene_mod
+    from moonrtx_tpu_torch.ops import extract, march_shade, shadow_prefix
+    from moonrtx_tpu_torch.parallel import make_mesh
+
+    def say(msg: str) -> None:
+        print(f"# mesh: {msg}", flush=True)
+
+    n_cards = torch.cuda.device_count()
+    mesh = make_mesh(MESH_DEVICES, virtual=n_cards < MESH_DEVICES)
+    where = (f"{MESH_DEVICES} logical devices on one {card}" if mesh.virtual
+             else f"{MESH_DEVICES} cards ({card} each)")
+    say(f"mesh of {where}: {[str(d) for d in mesh.devices]}")
+    events = []
+    real_log = scene_mod.log_event
+
+    def logged(name, **kw):
+        events.append(name)
+        real_log(name, **kw)
+
+    scene_mod.log_event = logged
+    plain = {"extract_group_windows": extract.extract_group_windows_plain,
+             "resample_group_windows": extract.resample_group_windows_plain,
+             "shadow_factor": shadow_prefix.shadow_factor_plain,
+             "march_shade": march_shade.march_shade_plain}
+    wrapper = kernels.wrappers()
+
+    def hold(what: str, name: str, call: dict) -> None:
+        got = wrapper[name](**call)
+        ref = plain[name](**call)
+        torch.cuda.synchronize()
+        checks = compare(name, call, got, ref)
+        ms, _ = device_ms(lambda: wrapper[name](**call),
+                          KERNELS[name]["kernel"], 30)
+        say(f"{name} at {what}: " + ", ".join(
+            f"{w} max |err| {e:.3g} (tolerance {t:.3g})"
+            for w, e, t in checks) + f"; {ms:.4f} ms a launch (device, "
+            f"{where})")
+
+    def hits_of(sc):
+        return (sc._hitbuf[..., 3] > 0).cpu().numpy()[
+            :sc.out_height, :sc.out_width]
+
+    def against(what: str, img, hit, img_b, hit_b) -> None:
+        st = frame_diff(img, img_b, hit, hit_b)
+        say(f"{what}: mean |d| {st['mean']:.4f}, p99 |d| {st['p99']:.1f}, "
+            f"share beyond 8 levels {st['over8']:.5f}, hit agreement "
+            f"{st['hits']:.5f} (tolerance: {FRAME_BOUNDS})")
+        if not within_frame_bounds(st):
+            fail(f"mesh: {what} is out of bounds")
+
+    def cold_burst(sc, label: str):
+        sc.update_view()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with kernels.recording() as calls:
+            img = sc.render(SAMPLES)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        say(f"{label}: cold {SAMPLES}-sample frame {ms:.1f} ms, launches "
+            f"{counts}, peak device memory {peak:.2f} GiB ({where})")
+        if counts != MESH_COLD_LAUNCHES:
+            fail(f"mesh: {label} launched {counts}, expected "
+                 f"{MESH_COLD_LAUNCHES}")
+        if not bool(torch.isfinite(sc._accum).all()) or img.shape != (
+                1080, 1920, 3):
+            fail(f"mesh: {label} frame {img.shape} is not finite")
+        return img, hits_of(sc), calls
+
+    # ---- 8a. replicated maps ------------------------------------------------
+    cfg8 = dataclasses.replace(cfg, devices=MESH_DEVICES)
+    scene = headless.build_scene(cfg8, mesh=mesh)
+    if scene.height != 1088 or scene.mesh.size != MESH_DEVICES:
+        fail(f"mesh: frame padded to {scene.height} rows")
+    img_a, hit_a, calls = cold_burst(scene, "8a replicated")
+    if "mesh_shadow_scan_fallback_single_device" in events:
+        fail("mesh: the shadow scan fell back to one device")
+    against("8a frame against phase 3's single-device frame", img_a, hit_a,
+            img3, hit3)
+    by = {}
+    for name, call in calls:
+        by.setdefault(name, []).append(call)
+    hold("wedge 1 (phi0 1024 of 4096)", "shadow_factor", by["shadow_factor"][1])
+    hold("wedge 1, heights", "resample_group_windows",
+         by["resample_group_windows"][2])
+    hold("wedge 1, bounce albedo", "resample_group_windows",
+         by["resample_group_windows"][3])
+    hold("strip 0, cold sample", "march_shade", by["march_shade"][0])
+    hold("strip 0, warm sample", "march_shade", by["march_shade"][1])
+    del calls, by
+
+    # ---- 8b. the interactive session on the mesh ----------------------------
+    sess = Session(scene, load_moon_features(None))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    sess.frame()
+    bright = scene.brightness
+    recs = []
+    for key, minutes in (("W", 15), ("W", 15), ("W", 15), ("Q", -15)):
+        org, pf = scene._origins, scene._prefetch
+        t0 = time.perf_counter()
+        sess.change_time(minutes)
+        sess.frame()
+        torch.cuda.synchronize()
+        recs.append(dict(
+            key=key, ms=(time.perf_counter() - t0) * 1e3, dt=scene.dt_local,
+            kept=scene._origins is org, flip=scene.last_flip_hit,
+            consumed=pf is not None and scene._accum is pf["accum"],
+            img=scene.display().copy(), hit=hits_of(scene),
+            brightness=bright))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    scene.set_brightness(bright + 10)
+    sess.frame()
+    torch.cuda.synchronize()
+    reset_counts = kernels.launch_counts()
+    recs.append(dict(key="brightness", ms=(time.perf_counter() - t0) * 1e3,
+                     dt=scene.dt_local, kept=True, flip=False,
+                     consumed=False, img=scene.display().copy(),
+                     hit=hits_of(scene), brightness=bright + 10))
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    say("8b steps: " + "; ".join(
+        f"{r['key']} {r['ms']:.1f} ms (windows kept {r['kept']}, "
+        f"speculation consumed {r['consumed']}, flip {r['flip']})"
+        for r in recs) + f"; the brightness reset launched {reset_counts}; "
+        f"peak device memory {peak_b:.2f} GiB ({where})")
+    say(f"8b kept-windows step (W, no speculation): {recs[0]['ms']:.1f} ms "
+        f"key to synchronised frame ({where})")
+    if not all(r["kept"] for r in recs[:4]):
+        fail("mesh: a 15-minute step dropped the pose windows")
+    if not (recs[1]["consumed"] and recs[2]["consumed"]):
+        fail("mesh: the held W steps did not consume their speculation")
+    if not recs[3]["flip"]:
+        fail("mesh: the W -> Q flip missed the flip cache")
+    if {k: v for k, v in reset_counts.items() if v} != {
+            "march_shade": MESH_DEVICES}:
+        fail(f"mesh: the brightness reset launched {reset_counts}")
+    for r in recs:
+        scene._prefetch = None
+        scene._flip_cache = None
+        scene._bounce = scene._bounce_basis = scene._bounce_key = None
+        scene.update_view(r["dt"])
+        scene.set_brightness(r["brightness"])
+        scene.set_view_orientation(scene.view_orientation)
+        img_c = scene.render(1)
+        against(f"8b {r['key']} frame against the same view from cold "
+                "caches", r["img"], r["hit"], img_c, hits_of(scene))
+    # the replicated frame 8c is held against: the zoomed view, cold
+    from moonrtx_tpu_torch.types import Camera
+
+    cam = scene.camera
+    zoom = Camera(eye=[c * MESH_BAND_ZOOM for c in cam.eye],
+                  target=cam.target, up=cam.up, fov=cam.fov)
+    scene._prefetch = None
+    scene._flip_cache = None
+    scene.update_view(cfg8.dt_local)        # 8c's scene starts there,
+    scene._rng = np.random.default_rng(42)  # with a fresh scene's jitters
+    scene.set_brightness(bright)
+    scene.set_camera(zoom)
+    img_z, hit_z, _ = cold_burst(scene, "8a replicated, zoomed to render "
+                                 f"level {scene.mip_level()}")
+    del sess, scene, recs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 8c. the render level band-sharded ----------------------------------
+    cfg8c = dataclasses.replace(cfg8, hbm_budget_gb=MESH_BAND_BUDGET_GB)
+    scene = headless.build_scene(cfg8c, mesh=mesh)
+    scene.set_camera(zoom)
+    ob = scene.hbm_over_budget or {}
+    say(f"8c plan at a {MESH_BAND_BUDGET_GB} GiB budget: banded mip levels "
+        f"{sorted(scene._band_levels)}, albedo levels "
+        f"{sorted(scene._band_alb_levels)}; projected "
+        f"{ob.get('projected_bytes')} bytes against a budget of "
+        f"{ob.get('budget_bytes')} bytes a device (render level "
+        f"{scene.mip_level()})")
+    if not scene.hf_sharded():
+        fail("mesh: the render level is not band-sharded in 8c")
+    img_c, hit_c, calls = cold_burst(scene, "8c banded")
+    against("8c banded frame against 8a's replicated frame of the same "
+            "view", img_c, hit_c, img_z, hit_z)
+    k1 = [c for n, c in calls if n == "extract_group_windows"]
+    hold("device 1's band-local extraction, heights",
+         "extract_group_windows", k1[2])
+    hold("device 1's band-local extraction, albedo",
+         "extract_group_windows", k1[3])
+    del calls, k1, scene
+    scene_mod.log_event = real_log
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def timelapse_frame_ms(scene, img, out_dir: str) -> tuple[list, float]:
     """What one time-lapse frame costs on its own, for phase 7 to hold the
     interval between saves against: three 15-minute time steps, each with
@@ -917,6 +1175,14 @@ def cli_phase(cfg, img, kind: str, step_ms: list, save_ms: float,
                         "--save", os.path.join(out_dir, "cli_tl.png")]
     nocard = base + ["--accumulation-frames", "8", "--indirect-bounces", "2",
                      "--save", os.path.join(out_dir, "cli_nocard.png")]
+    # --devices 4: on a host with fewer cards make_mesh refuses and the run
+    # exits non-zero naming them; on four cards it renders over them
+    four = [("4" if f == "0" and base[i - 1] == "--devices" else f)
+            for i, f in enumerate(base)]
+    four += ["--accumulation-frames", "8", "--indirect-bounces", "1",
+             "--save", os.path.join(out_dir, "cli_devices4.png")]
+    import torch
+    n_cards = torch.cuda.device_count()
     # the time-lapse's first frame is phase 3's frame: the configuration
     # its flags give must be phase 3's, the data files (absent here, so
     # None) and devices (0: every local device, one here) aside
@@ -935,7 +1201,8 @@ def cli_phase(cfg, img, kind: str, step_ms: list, save_ms: float,
     for name, flags, extra in (("still", still, {}),
                                ("timelapse", timelapse, {}),
                                ("nocard", nocard,
-                                {"CUDA_VISIBLE_DEVICES": ""})):
+                                {"CUDA_VISIBLE_DEVICES": ""}),
+                               ("devices4", four, {})):
         r = run_cli(flags, here, {**env, **extra}, 400)
         runs[name] = r
         with open(os.path.join(out_dir, f"cli_{name}.log"), "w") as f:
@@ -944,7 +1211,8 @@ def cli_phase(cfg, img, kind: str, step_ms: list, save_ms: float,
                else f"{r['rss_gib']:.2f} GiB")
         say(f"{name}: exit {r['rc']}, wall {r['wall_s']:.2f} s, peak host "
             f"RSS {rss}")
-        if name != "nocard" and r["rc"] != 0:
+        refused = name == "nocard" or (name == "devices4" and n_cards < 4)
+        if not refused and r["rc"] != 0:
             tail = "\n".join(line for _, line in r["lines"][-30:])
             fail(f"cli: the {name} run exited {r['rc']}:\n{tail}")
         if name != "nocard":
@@ -954,7 +1222,25 @@ def cli_phase(cfg, img, kind: str, step_ms: list, save_ms: float,
             if len(acc) != 1 or kind not in acc[0]:
                 fail(f"cli: the {name} run names no card {kind!r}")
 
+    r = runs["devices4"]
+    said = [line for _, line in r["lines"]
+            if line.startswith(("Error", "Saved:", "Devices:"))]
+    say(f"--devices 4 on {n_cards} card(s): exit {r['rc']}, {said}")
+    saved4 = os.path.exists(os.path.join(out_dir, "cli_devices4.png"))
+    if n_cards < 4:
+        if r["rc"] == 0 or saved4 or not any(
+                "make_mesh(4)" in line and f"only {n_cards}" in line
+                for line in said):
+            fail("cli: --devices 4 on fewer cards did not refuse naming "
+                 "the missing cards")
+    elif not saved4 or not any(line.startswith("Devices: 4")
+                               for line in said):
+        fail("cli: --devices 4 on four cards did not render over them")
+
     frames = {"still": read_png(os.path.join(out_dir, "cli_still.png"))}
+    if n_cards >= 4:
+        frames["devices4"] = read_png(os.path.join(out_dir,
+                                                   "cli_devices4.png"))
     for i in range(4):
         frames[f"tl{i}"] = read_png(os.path.join(out_dir,
                                                  f"cli_tl_{i:04d}.png"))
@@ -1449,6 +1735,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli_phase(cfg, img, kind, step_ms, save_ms, here, out_dir)
+
+    # ---- 8. the mesh on the card -------------------------------------------
+    mesh_phase(cfg, img, hit, card, out_dir)
 
     print(json.dumps({"kernels": report}))
     print(card)

@@ -153,9 +153,10 @@ def parse_args(argv=None):
                              "second bounce is ~5%% of the indirect term "
                              "— docs/GI.md)")
     parser.add_argument("--devices", type=int, default=1,
-                        help="Device-mesh width for multi-chip rendering: "
-                             "1 = single device, 0 = all local devices, "
-                             "N = exactly N (fails if unavailable)")
+                        help="Device-mesh width for multi-device rendering "
+                             "(image strips, shadow-scan wedges): 1 = single "
+                             "device, 0 = every local card, N = exactly N "
+                             "(fails if fewer cards exist)")
     parser.add_argument("--hbm-budget-gb", type=float, default=0.0,
                         help="Per-chip HBM budget (GiB) for the map "
                              "pyramids with --devices > 1: maps that "
@@ -404,6 +405,26 @@ def check_accelerator(device=None) -> bool:
     return True
 
 
+def check_devices(cfg: RenderConfig, device=None) -> bool:
+    """Build the device mesh that --devices asks for, as the scene will,
+    and report it; on a host with fewer cards print make_mesh's error and
+    return False (nothing renders on fewer devices than asked)."""
+    import torch
+
+    from moonrtx_tpu_torch.engine.scene import resolve_mesh
+
+    dev = torch.device("cpu" if device == "cpu" else "cuda")
+    try:
+        mesh = resolve_mesh(cfg, dev)
+    except RuntimeError as e:
+        print(f"Error: {e}")
+        return False
+    if mesh is not None:
+        print(f"Devices: {mesh.size} "
+              f"({', '.join(str(d) for d in mesh.devices)})")
+    return True
+
+
 def main(argv=None):
     # MOONRTX_PLATFORM picks the device: "cpu" or "cuda"; unset means the
     # card
@@ -414,7 +435,7 @@ def main(argv=None):
         sys.exit(1)
     args = parse_args(argv)
     cfg = config_from_args(args)
-    if not check_accelerator(device):
+    if not check_accelerator(device) or not check_devices(cfg, device):
         sys.exit(1)
     print_startup(cfg)
 

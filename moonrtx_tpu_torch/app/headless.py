@@ -20,9 +20,10 @@ from moonrtx_tpu_torch.engine.scene import MoonScene
 
 
 def build_scene(config: RenderConfig, with_starmap: bool = True,
-                device=None) -> MoonScene:
+                device=None, mesh=None) -> MoonScene:
     """Load data (real files or procedural fallback) and build the scene
-    on ``device`` (None = the CUDA card)."""
+    on ``device`` (None = the CUDA card), or on ``mesh``
+    (parallel.make_mesh; by default the mesh config.devices asks for)."""
     ss = config.synth_shape
     elevation, radius_scale = load_elevation_data(
         config.elevation_file, config.downscale,
@@ -37,7 +38,7 @@ def build_scene(config: RenderConfig, with_starmap: bool = True,
     starmap = (load_starmap(config.starmap_file, config.width * 2)
                if with_starmap else None)
     scene = MoonScene(config, elevation, radius_scale, albedo, starmap,
-                      device=device)
+                      device=device, mesh=mesh)
     scene.features = sorted(load_moon_features(config.features_file),
                             key=lambda f: f.angular_radius)
     return scene

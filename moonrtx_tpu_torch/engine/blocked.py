@@ -166,17 +166,20 @@ class ShadowWindows(NamedTuple):
     sq: torch.Tensor        # per-block stride into the shadow grid (1/2/4)
 
 
-def _block_ray_dirs(basis: CameraBasis, height: int, width: int, jitter):
-    """Ray directions generated directly in block layout (NBLK, B, 3)."""
+def _block_ray_dirs(basis: CameraBasis, height: int, width: int, jitter,
+                    row_offset=0, full_height: int = None):
+    """Ray directions generated directly in block layout (NBLK, B, 3);
+    row_offset/full_height as in camera.ray_directions."""
     dev = basis.eye.device
+    fh = height if full_height is None else full_height
     nblk = (height // BLOCK_H) * (width // BLOCK_W)
     wbk = width // BLOCK_W
     blk = torch.arange(nblk, dtype=torch.int32, device=dev)[:, None]
     ray = torch.arange(BLOCK, dtype=torch.int32, device=dev)[None, :]
     ys = ((blk // wbk) * BLOCK_H + ray // BLOCK_W).to(torch.float32)
     xs = ((blk % wbk) * BLOCK_W + ray % BLOCK_W).to(torch.float32)
-    v = 1.0 - 2.0 * (ys + 0.5 + jitter[0]) / height
-    u = (2.0 * (xs + 0.5 + jitter[1]) / width - 1.0) * (width / height)
+    v = 1.0 - 2.0 * (ys + row_offset + 0.5 + jitter[0]) / fh
+    u = (2.0 * (xs + 0.5 + jitter[1]) / width - 1.0) * (width / fh)
     d = (basis.forward[None, None, :]
          + basis.tan_half_fov * (u[..., None] * basis.right[None, None, :]
                                  + v[..., None] * basis.up[None, None, :]))
@@ -184,17 +187,22 @@ def _block_ray_dirs(basis: CameraBasis, height: int, width: int, jitter):
 
 
 def block_rays(basis: CameraBasis, rotation, jitter, height: int, width: int,
-               h_min: float, maxmap=None, h_bound=None,
-               image_dirs: bool = True) -> RayGeom:
+               h_min: float, maxmap=None, h_bound=None, row_offset=0,
+               full_height: int = None, image_dirs: bool = True) -> RayGeom:
     """Jittered rays + shell-chord ranges tightened against the per-block
-    local max height (from the dilated coarse max map, or a cached bound)."""
+    local max height (from the dilated coarse max map, or a cached bound).
+
+    row_offset/full_height select a horizontal strip of a larger frame
+    (image strips over a device mesh, parallel/tiles.py)."""
     if image_dirs:
-        dirs_scene = ray_directions(basis, height, width, jitter)
+        dirs_scene = ray_directions(basis, height, width, jitter,
+                                    row_offset=row_offset,
+                                    full_height=full_height)
         db = mat3t_apply(rotation, to_blocks(dirs_scene))
     else:
         dirs_scene = None
-        db = mat3t_apply(rotation, _block_ray_dirs(basis, height, width,
-                                                   jitter))
+        db = mat3t_apply(rotation, _block_ray_dirs(
+            basis, height, width, jitter, row_offset, full_height))
     ob = mat3t_apply(rotation, basis.eye)
 
     hit_out, t_enter, t_exit_out = ray_sphere(ob, db, C.MOON_RADIUS)
@@ -708,6 +716,40 @@ def _kernel_params(ob, fp: FrameParams, smap_params, use_shadow: bool,
                        z, z, pix_ang, s(ah), s(aw), lblend] + ecl
     vec = torch.stack([s(v) for v in params_list])
     return vec[:, None, None].expand(mk.N_PARAMS, GROUP, BLOCK).contiguous()
+
+
+def render_frame_pallas(cache: WindowCache, org: WindowOrigins,
+                        geom: RayGeom,
+                        shadow_windows: Optional[ShadowWindows],
+                        smap_params, background, basis: CameraBasis,
+                        fp: FrameParams, height: int, width: int, h: int,
+                        w: int, ah: Optional[int] = None,
+                        aw: Optional[int] = None, n_coarse: int = 16,
+                        use_shadow: bool = True) -> RenderOutput:
+    """One frame through the march kernel (K2) from window caches: packs
+    the windows and runs one sample on ``geom``'s rays (for repeated
+    samples render_accumulate_pallas packs once). ah/aw: the albedo
+    level's shape when coarser than the height level."""
+    packed = pack_windows(cache, org,
+                          shadow_windows if use_shadow else None)
+    params = _kernel_params(geom.ob, fp, smap_params, use_shadow,
+                            2.0 * basis.tan_half_fov / height,
+                            ah if ah is not None else h,
+                            aw if aw is not None else w)
+    ns = geom.db.shape[0] // GROUP
+    dbx, dby, dbz = (geom.db[..., i].reshape(ns, GROUP, BLOCK)
+                     for i in range(3))
+    r, g, b, hitf, t_hit, px, py, pz = mk.march_shade(
+        params, dbx, dby, dbz, geom.t_enter.reshape(ns, GROUP, BLOCK),
+        geom.t_end.reshape(ns, GROUP, BLOCK),
+        geom.hit_outer.to(torch.float32).reshape(ns, GROUP, BLOCK),
+        packed.scal, packed.hwin, packed.awin, packed.swin, h=h, w=w,
+        n_coarse=n_coarse, use_shadow=use_shadow,
+        use_earth=fp.earth is not None)
+    rgb, hitbuf = composite_kernel_outputs(
+        r, g, b, hitf, t_hit, px, py, pz, height, width, geom.dirs_scene,
+        basis.eye, fp, background=background)
+    return RenderOutput(rgb=rgb, hitbuf=hitbuf)
 
 
 def _burst_core(packed: PackedWindows, smap_params, background, maxmap,

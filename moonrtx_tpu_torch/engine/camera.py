@@ -60,20 +60,26 @@ def camera_basis(cam: Camera, orientation: str, device) -> CameraBasis:
 
 
 def ray_directions(basis: CameraBasis, height: int, width: int,
-                   jitter=None) -> torch.Tensor:
+                   jitter=None, row_offset=0,
+                   full_height: int = None) -> torch.Tensor:
     """Unit ray directions (H, W, 3) in scene coordinates.
 
     Vertical FOV; square pixels; pixel centers at +0.5. ``jitter`` is an
     optional (2,) sub-pixel offset in [-0.5, 0.5) (row, column) used by
-    progressive accumulation for antialiasing."""
+    progressive accumulation for antialiasing. ``row_offset`` and
+    ``full_height`` render the horizontal strip of rows
+    [row_offset, row_offset + height) of a full_height-row image (image
+    strips over a device mesh)."""
     dev = basis.eye.device
-    ys = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    fh = height if full_height is None else full_height
+    ys = torch.arange(height, dtype=torch.float32,
+                      device=dev)[:, None] + row_offset
     xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
     jy = 0.0 if jitter is None else jitter[..., 0]
     jx = 0.0 if jitter is None else jitter[..., 1]
     # NDC in [-1, 1], y up
-    v = 1.0 - 2.0 * (ys + 0.5 + jy) / height
-    u = (2.0 * (xs + 0.5 + jx) / width - 1.0) * (width / height)
+    v = 1.0 - 2.0 * (ys + 0.5 + jy) / fh
+    u = (2.0 * (xs + 0.5 + jx) / width - 1.0) * (width / fh)
     u = u.expand(height, width)
     v = v.expand(height, width)
     d = (basis.forward[None, None, :]

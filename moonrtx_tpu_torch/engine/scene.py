@@ -29,13 +29,22 @@ left is kept for a Q/W direction flip (the flip cache); and the next
 held-key step can be dispatched ahead (prefetch_time), in stream order
 behind the frame. Picking and measurement read small host copies
 (get_hit_at, elevation_m_at). The maps go up in row bands
-(_upload_rows_banded). The device mesh and the band-sharded maps come in
-a later slice.
+(_upload_rows_banded).
+
+With a device mesh (config.devices > 1, or ``mesh=``), every displaced
+frame renders through the strip programs of parallel/tiles.py and the
+shadow maps through its phi-wedge scan (_mesh_step); the pose, window
+and sun caches live per device as NamedTuples of per-device lists in the
+same scene fields, so the drift policy, the flip cache and the
+speculation apply unchanged. Levels too big for the per-device memory
+budget are band-sharded across the mesh (_plan_bands,
+parallel/hfshard.py) and never materialised whole on one device.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time as _time
 import warnings
 from datetime import datetime
@@ -61,6 +70,7 @@ from moonrtx_tpu_torch.engine.render import FrameParams
 from moonrtx_tpu_torch.ops import sampler
 from moonrtx_tpu_torch.ops import shadow_scan
 from moonrtx_tpu_torch.types import Camera, MoonEphemeris
+from moonrtx_tpu_torch.utils.log import log_event
 
 # Shadow scans sample the heightfield at the scan grid's own resolution
 # (<= 2304x4096 cells); building from a much finer mip wastes bandwidth.
@@ -183,29 +193,49 @@ def _upload_rows_banded(m: np.ndarray, device,
     return out
 
 
+def resolve_mesh(config: RenderConfig, device: torch.device, mesh=None):
+    """The scene's device mesh, or None for one device.
+
+    ``mesh`` (a parallel.Mesh) is taken as given. Otherwise
+    config.devices keeps the reference's meaning: 0 is every local device
+    (every card; one CPU device), N > 1 a mesh of exactly N devices, which
+    make_mesh refuses to build on a host with fewer cards."""
+    n_req = int(getattr(config, "devices", 1))
+    if mesh is not None:
+        if n_req > 1 and n_req != mesh.size:
+            raise ValueError(f"devices={n_req} but the mesh has "
+                             f"{mesh.size} devices")
+        return mesh if mesh.size > 1 else None
+    if n_req == 0:
+        n_req = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n_req <= 1:
+        return None
+    from moonrtx_tpu_torch.parallel import make_mesh
+    return make_mesh(n_req, device=device)
+
+
 class MoonScene:
     """Owns device textures + scene state; renders progressive frames.
 
     ``device`` None means the CUDA card (moonrtx_tpu_torch.device); pass
-    ``device="cpu"`` to run the plain PyTorch path on the host."""
+    ``device="cpu"`` to run the plain PyTorch path on the host. ``mesh``
+    (parallel.make_mesh) renders over several devices, as config.devices
+    > 1 does; the scene's own device is then the mesh's first, where the
+    frames are gathered."""
 
     def __init__(self, config: RenderConfig, elevation: np.ndarray,
                  radius_scale: float, albedo: np.ndarray,
-                 starmap: Optional[np.ndarray], device=None):
+                 starmap: Optional[np.ndarray], device=None, mesh=None):
+        if device is None and mesh is not None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.config = config
         self.radius_scale = float(radius_scale)
-        # devices=0 means every local device, as in the reference; one
-        # device builds no mesh
-        n_dev = int(getattr(config, "devices", 1))
-        if n_dev == 0:
-            n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
-                     else 1)
-        if n_dev > 1:
-            raise NotImplementedError(
-                f"devices={n_dev}: multi-device rendering (the reference's "
-                "parallel/ package, the scene's mesh and banded paths) is "
-                "not ported yet; pass devices=1")
+        # image rows and shadow-scan phi wedges split over the mesh; a
+        # devices=N request is a hard one (make_mesh raises on fewer)
+        self.mesh = resolve_mesh(config, self.device, mesh)
+        if self.mesh is not None:
+            self.device = self.mesh.devices[0]
         quant = config.quantize
         if quant == "auto":
             quant = ("i16" if elevation.shape[0] * elevation.shape[1]
@@ -224,34 +254,61 @@ class MoonScene:
         # (numpy) behind a device-ready disk cache for quantized maps.
         ps = load_or_build(elevation, albedo, self.quantized,
                            use_cache=self.quantized)
-        t_upload = _time.time()
         host_alb = [ps.albedo_kept[0]] * ps.alb_min_level + list(
             ps.albedo_kept)
+        # Host pyramids stay referenced on a mesh: band sharding builds the
+        # per-device bands from them lazily. Without a mesh only level 0 is
+        # kept (below).
+        self._host_mips = list(ps.mips)
+        self._host_albedo = host_alb
+        self.alb_min_level = int(ps.alb_min_level)
+        # Placement (mesh mode): levels too big for the per-device memory
+        # budget are band-sharded across the mesh instead of replicated;
+        # their self.mips/albedo_mips slots hold None and every render of
+        # them goes through the banded burst.
+        self.hbm_over_budget: Optional[dict] = None
+        self._band_levels, self._band_alb_levels = self._plan_bands()
+        if self.alb_min_level in self._band_alb_levels:
+            # head slots alias the alb_min_level array: keep them banded
+            # too, or the aliased upload would materialise it whole
+            self._band_alb_levels.update(range(self.alb_min_level))
+        self._banded_mips = {}
+        self._banded_albedo = {}
+        t_upload = _time.time()
         self._install(
-            mips=[_upload_rows_banded(m, self.device) for m in ps.mips],
-            albedo_mips=self._upload_aliased(host_alb),
+            mips=[None if k in self._band_levels
+                  else _upload_rows_banded(m, self.device)
+                  for k, m in enumerate(ps.mips)],
+            albedo_mips=self._upload_aliased(host_alb,
+                                             self._band_alb_levels),
             maxmap=_upload_rows_banded(ps.maxmap, self.device),
             slope_maps=_upload_rows_banded(ps.slope_maps, self.device),
             starmap=(_upload_rows_banded(pad_lon_wrap(starmap, PAD_COLS),
                                          self.device)
                      if starmap is not None else None),
             h_min=ps.h_min, h_scale=ps.h_scale, h_offset=ps.h_offset,
-            a_scale=ps.a_scale, alb_min_level=ps.alb_min_level)
+            a_scale=ps.a_scale, alb_min_level=ps.alb_min_level,
+            mip_shapes=[(m.shape[0], m.shape[1] - PAD_COLS)
+                        for m in ps.mips])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.upload_wall_s = _time.time() - t_upload
-        # Host level 0 stays referenced (mmap-backed when it came from the
-        # pyramid cache, never copied): full-resolution measurement
-        # samples it without device transfers. The other levels are
-        # dropped after upload.
-        self._host_mips = [ps.mips[0]] + [None] * (len(ps.mips) - 1)
+        if self.mesh is None:
+            # Host level 0 stays referenced (mmap-backed when it came from
+            # the pyramid cache, never copied): full-resolution measurement
+            # samples it without device transfers. The other levels are
+            # dropped after upload.
+            self._host_mips = [ps.mips[0]] + [None] * (len(ps.mips) - 1)
+            self._host_albedo = None
 
-        # internal render size padded to the block grid (display crops back)
+        # internal render size padded to the block grid (display crops
+        # back); on a mesh the height pads to equal strips per device
         self.out_width = config.width
         self.out_height = config.height
         w_mult = blocked.BLOCK_W * blocked.GROUP  # 8-block strips
         self.width = -(-config.width // w_mult) * w_mult
-        self.height = -(-config.height // blocked.BLOCK_H) * blocked.BLOCK_H
+        h_mult = blocked.BLOCK_H * (self.mesh.size if self.mesh else 1)
+        self.height = -(-config.height // h_mult) * h_mult
         self.dt_local: Optional[datetime] = config.dt_local
         self.brightness = config.brightness
         self.gamma = config.gamma
@@ -294,17 +351,21 @@ class MoonScene:
         self.last_flip_hit = False   # observability (bench/tests)
         self._rng = np.random.default_rng(42)
 
-    def _upload_aliased(self, host_alb):
+    def _upload_aliased(self, host_alb, skip=()):
         uploaded = {}
         out = []
-        for a in host_alb:  # aliased head slots upload once
+        for k, a in enumerate(host_alb):  # aliased head slots upload once
+            if k in skip:
+                out.append(None)
+                continue
             if id(a) not in uploaded:
                 uploaded[id(a)] = _upload_rows_banded(a, self.device)
             out.append(uploaded[id(a)])
         return out
 
     def _install(self, mips, albedo_mips, maxmap, slope_maps, starmap,
-                 h_min, h_scale, h_offset, a_scale, alb_min_level) -> None:
+                 h_min, h_scale, h_offset, a_scale, alb_min_level,
+                 mip_shapes=None) -> None:
         self.mips = list(mips)
         self.albedo_mips = list(albedo_mips)
         self.maxmap = maxmap
@@ -315,8 +376,9 @@ class MoonScene:
         self.h_offset = float(h_offset)
         self.a_scale = float(a_scale)
         self.alb_min_level = int(alb_min_level)
-        self.mip_shapes = [(m.shape[0], m.shape[1] - PAD_COLS)
-                           for m in self.mips]
+        self.mip_shapes = mip_shapes or [(m.shape[0], m.shape[1] - PAD_COLS)
+                                         for m in self.mips]
+        self._replicas = {}          # id(map) -> (map, per-device copies)
 
     def load_state(self, state: dict) -> None:
         """Install device state from a flat tensor dict
@@ -336,6 +398,10 @@ class MoonScene:
             h_offset=state["h_offset"].item(),
             a_scale=state["a_scale"].item(),
             alb_min_level=state["alb_min_level"].item())
+        # every level arrives whole: nothing stays band-sharded
+        self._band_levels, self._band_alb_levels = set(), set()
+        self._banded_mips, self._banded_albedo = {}, {}
+        self.hbm_over_budget = None
         self._host_mips = [self.mips[0].cpu().numpy()] + [None] * (
             len(self.mips) - 1)
         self._alb_lum = {}
@@ -357,6 +423,222 @@ class MoonScene:
         self._shadowwin = None       # ShadowWindows, or FUSED_SHADOW_STATE
         self._packed = None          # PackedWindows (march-kernel layout)
         self._cache_level = None
+
+    # ---- heightfield band sharding (per-device memory placement) --------
+
+    def _hbm_budget_bytes(self) -> Optional[int]:
+        """Per-device memory budget: the config knob, or three quarters of
+        the card's memory (headroom for frames, windows and scratch)
+        divided among the logical devices that share it, or None when
+        neither is known (the CPU: replicate)."""
+        gb = float(getattr(self.config, "hbm_budget_gb", 0.0))
+        if gb > 0:
+            return int(gb * 2**30)
+        dev = self.mesh.devices[0] if self.mesh is not None else self.device
+        if dev.type != "cuda":
+            return None
+        total = torch.cuda.get_device_properties(dev).total_memory
+        share = self.mesh.sharing(dev) if self.mesh is not None else 1
+        return int(0.75 * total) // share
+
+    def _plan_bands(self) -> tuple[set, set]:
+        """(mip levels, albedo levels) to band-shard across the mesh.
+
+        Bands engage only when a mesh exists and the device-ready pyramid
+        bytes exceed the per-device budget. Only levels above the
+        shadow-scan working-set cap are candidates (the scan, the bounce
+        alb_lum and the host measurement copy read the <= SHADOW_MAX_TEXELS
+        levels and need them replicated), and a mip level k is banded only
+        when the row counts of k, k+1 and its albedo levels all divide the
+        mesh: the banded burst samples (level, level+1) pairs, so partial
+        banding of a pair is unrenderable. Biggest first until the
+        projected per-device footprint fits the budget."""
+        if self.mesh is None:
+            return set(), set()
+        from moonrtx_tpu_torch.parallel import BAND_HALO
+
+        n_dev = self.mesh.size
+        mips, albs = self._host_mips, self._host_albedo
+        total = (sum(m.nbytes for m in mips)
+                 + sum(a.nbytes for a in albs[self.alb_min_level:]))
+        budget = self._hbm_budget_bytes()
+        if budget is None or total <= budget:
+            if budget is None and total > 8 * 2**30:
+                log_event("hfshard_skipped", reason="unknown HBM budget",
+                          pyramid_bytes=total)
+            return set(), set()
+
+        def divides(arr):
+            return arr.shape[0] % n_dev == 0
+
+        def big(arr):
+            return (arr.shape[0] * (arr.shape[1] - PAD_COLS)
+                    > SHADOW_MAX_TEXELS)
+
+        def band_bytes(arr):
+            band_h = arr.shape[0] // n_dev
+            return arr.nbytes * (band_h + BAND_HALO) // arr.shape[0]
+
+        def alb_index(k):
+            return min(max(k + blocked.ALB_DOWN, self.alb_min_level),
+                       len(albs) - 1)
+
+        def level_set(r):
+            """The (mip, mip+1, albedo, albedo+1) indices the banded burst
+            samples for render level r; MUST mirror _pose_program_sharded
+            and hf_sharded (nalevel is albedo_level(r)+1, not
+            albedo_level(r+1))."""
+            nr = min(r + 1, len(mips) - 1)
+            ar = alb_index(r)
+            nar = min(ar + 1, len(albs) - 1)
+            return r, nr, ar, nar
+
+        def hf_routed(r, band_mips, band_albs):
+            rr, nr, ar, nar = level_set(r)
+            return (rr in band_mips or nr in band_mips
+                    or ar in band_albs or nar in band_albs)
+
+        # Candidates are render levels: banding level k bands mips[k] and
+        # its albedo together, and requires (k, k+1, albedo(k),
+        # albedo(k)+1) all divisible so the (level, level+1) pair the
+        # banded burst reads is always bandable.
+        cand = []
+        for k, m in enumerate(mips):
+            _, nk, ak, nak = level_set(k)
+            if not (big(m) and divides(m) and divides(mips[nk])
+                    and divides(albs[ak]) and divides(albs[nak])):
+                continue
+            cand.append((k, ak if big(albs[ak]) else None,
+                         m.nbytes + (albs[ak].nbytes if big(albs[ak])
+                                     else 0)))
+        cand.sort(key=lambda c: -c[2])
+
+        def projected_bytes(band_mips, band_albs):
+            """Worst-case per-device footprint of a placement: replicated
+            levels in full, banded levels as band+halo, including every
+            lazily-banded copy the banded burst can create at render time
+            (any render level whose (level, level+1, albedo, albedo+1)
+            set touches a banded entry renders banded and bands its whole
+            set; those copies coexist with their replicated originals)."""
+            lazy_m, lazy_a = set(), set()
+            for r in range(len(mips)):
+                if not hf_routed(r, band_mips, band_albs):
+                    continue
+                rr, nr, ar, nar = level_set(r)
+                for k in (rr, nr):
+                    if k not in band_mips:
+                        lazy_m.add(k)
+                for a in (ar, nar):
+                    if a not in band_albs:
+                        lazy_a.add(a)
+            tot = 0
+            for k, m in enumerate(mips):
+                tot += band_bytes(m) if k in band_mips else m.nbytes
+                if k in lazy_m:
+                    tot += band_bytes(m)
+            seen = set()
+            for k, a in enumerate(albs):
+                if k < self.alb_min_level or id(a) in seen:
+                    continue
+                seen.add(id(a))
+                tot += band_bytes(a) if k in band_albs else a.nbytes
+                if k in lazy_a:
+                    tot += band_bytes(a)
+            return tot
+
+        def closure_bandable(band_mips, band_albs):
+            """Every level the banded route would lazily band under this
+            plan must divide the mesh, or rendering would raise."""
+            for r in range(len(mips)):
+                if not hf_routed(r, band_mips, band_albs):
+                    continue
+                rr, nr, ar, nar = level_set(r)
+                if not (divides(mips[rr]) and divides(mips[nr])
+                        and divides(albs[ar]) and divides(albs[nar])):
+                    return False
+            return True
+
+        band_mips, band_albs = set(), set()
+        projected = total
+        for k, ak, _ in cand:
+            if projected <= budget:
+                break
+            trial_m = band_mips | {k}
+            trial_a = band_albs | ({ak} if ak is not None else set())
+            if not closure_bandable(trial_m, trial_a):
+                continue
+            band_mips, band_albs = trial_m, trial_a
+            projected = projected_bytes(band_mips, band_albs)
+        if band_mips or band_albs:
+            log_event("hfshard_engaged", devices=n_dev,
+                      pyramid_bytes=total, budget_bytes=budget,
+                      projected_bytes=projected,
+                      banded_mip_levels=sorted(band_mips),
+                      banded_albedo_levels=sorted(band_albs))
+        if projected > budget:
+            # not nested under the bands-chosen branch: a scene where no
+            # level is bandable at all is over budget with empty band sets
+            # and must warn the same way; the status bar's "memory" panel
+            # mirrors it (app/session.py)
+            log_event("hfshard_over_budget",
+                      projected_bytes=projected, budget_bytes=budget)
+            self.hbm_over_budget = {"projected_bytes": projected,
+                                    "budget_bytes": budget}
+            banded = "fully-banded" if (band_mips or band_albs) \
+                else "(unbandable) replicated"
+            print(f"WARNING: even the {banded} heightfield plan "
+                  f"needs {projected / 2**30:.2f} GiB/device against a "
+                  f"{budget / 2**30:.2f} GiB memory budget "
+                  f"({n_dev} devices). Expect allocator pressure; "
+                  "add devices, raise --hbm-budget-gb, or downscale.",
+                  file=sys.stderr)
+        return band_mips, band_albs
+
+    def _banded_mip(self, k: int) -> list:
+        """Per-device bands of mip level k (built lazily, cached)."""
+        if k not in self._banded_mips:
+            from moonrtx_tpu_torch.parallel import shard_bands
+            self._banded_mips[k] = shard_bands(self.mesh, self._host_mips[k])
+        return self._banded_mips[k]
+
+    def _banded_alb(self, k: int) -> list:
+        if k not in self._banded_albedo:
+            from moonrtx_tpu_torch.parallel import shard_bands
+            self._banded_albedo[k] = shard_bands(self.mesh,
+                                                 self._host_albedo[k])
+        return self._banded_albedo[k]
+
+    def hf_sharded(self) -> bool:
+        """True when the current render level renders through the banded
+        heightfield path."""
+        if self.mesh is None:
+            return False
+        level = self.mip_level()
+        nlevel = min(level + 1, len(self.mips) - 1)
+        alevel = self.albedo_level(level)
+        nalevel = min(alevel + 1, len(self.albedo_mips) - 1)
+        return any(k in self._band_levels for k in (level, nlevel)) or any(
+            k in self._band_alb_levels for k in (alevel, nalevel))
+
+    def _rep(self, t):
+        """A replicated map as the strip programs take it: the tensor
+        itself when every device of the mesh is the scene's device (CPU
+        or one card), else its copies on every device, made once."""
+        if t is None or all(d == self.device for d in self.mesh.devices):
+            return t
+        hit = self._replicas.get(id(t))
+        if hit is None or hit[0] is not t:
+            from moonrtx_tpu_torch.parallel import replicated
+            hit = self._replicas[id(t)] = (t, replicated(self.mesh, t))
+        return hit[1]
+
+    def _rep_levels(self, stack, level: int, n: int):
+        """Levels [level, level + n) of a replicated (levels, h, w) stack,
+        each device's from its copy made once by _rep."""
+        rep = self._rep(stack)
+        if isinstance(rep, torch.Tensor):
+            return rep[level:level + n]
+        return [s[level:level + n] for s in rep]
 
     # ---- state updates -------------------------------------------------
 
@@ -676,6 +958,62 @@ class MoonScene:
         ang = math.asin(C.SUN_RADIUS_KM / e.sun_distance)
         return sun_body / np.linalg.norm(sun_body), ang
 
+    def _dispatch_shadow_maps_mesh(self, sun_unit, ang: float, acc: int):
+        """Dispatch the phi-wedge-sharded scan (parallel/tiles.py) for a
+        sun state with no scene mutation (the speculation shares it with
+        shadow_args). The bounce map is reused exactly as on one device:
+        inside BOUNCE_REUSE_DEG of its build frame the scan runs factor
+        only. Returns None without a mesh, or when the phi grid does not
+        divide the mesh (logged: the caller runs the unsharded scan)."""
+        if self.mesh is None:
+            return None
+        from moonrtx_tpu_torch.parallel import build_shadow_map_sharded
+
+        ncs, nf, nph = shadow_scan._resolution(acc)
+        if nph % self.mesh.size:
+            log_event("mesh_shadow_scan_fallback_single_device",
+                      n_phi=nph, devices=self.mesh.size,
+                      reason="phi grid does not divide the mesh")
+            return None
+        slevel = self.shadow_level()
+        h, w = self.mip_shapes[slevel]
+        basis_np = _sun_frame_basis_np(np.asarray(sun_unit))
+        reuse = (
+            self.indirect_light
+            and self._bounce is not None
+            and self._bounce_basis is not None
+            and self._bounce_key == (slevel, acc)
+            and _rotation_angle_deg(basis_np, self._bounce_basis)
+            <= BOUNCE_REUSE_DEG)
+        sun_basis = torch.as_tensor(np.asarray(basis_np, np.float32),
+                                    device=self.device)
+        smap, bmap = build_shadow_map_sharded(
+            self.mesh, self._rep(self.mips[slevel]), sun_basis, ang, h, w,
+            ncs, nf, nph,
+            alb_lum=(self._rep(self.alb_lum(slevel))
+                     if self.indirect_light and not reuse else None),
+            h_scale=self.h_scale, h_offset=self.h_offset,
+            n_bounces=self.indirect_bounces)
+        params = shadow_scan._params(sun_basis, ncs, nf, nph, ang)
+        if reuse:
+            return dict(shadow=(smap, params), bounce_render=self._bounce,
+                        bounce=None, bounce_basis=None, bounce_key=None)
+        return dict(shadow=(smap, params), bounce_render=bmap, bounce=bmap,
+                    bounce_basis=basis_np, bounce_key=(slevel, acc))
+
+    def _shadow_args_mesh(self, sun_unit, ang: float, acc: int):
+        """Mesh-mode shadow rebuild: dispatch + install. Returns True when
+        handled, None to fall through to the single-device scan."""
+        r = self._dispatch_shadow_maps_mesh(sun_unit, ang, acc)
+        if r is None:
+            return None
+        self._shadow = r["shadow"]
+        if r["bounce"] is not None:
+            self._bounce = r["bounce"]
+            self._bounce_basis = r["bounce_basis"]
+            self._bounce_key = r["bounce_key"]
+        return True
+
     def shadow_args(self):
         """Current (shadow_map, params), rebuilt lazily on time change
         (with the one-bounce irradiance map into self._bounce)."""
@@ -683,6 +1021,10 @@ class MoonScene:
             return None
         if self._shadow is None or self._shadow_dirty:
             sun_unit, ang = self._sun_state()
+            acc = self.shadow_accuracy if self.shadows_on else 1
+            if self._shadow_args_mesh(sun_unit, ang, acc) is not None:
+                self._shadow_dirty = False
+                return self._shadow
             sm = self._dispatch_shadow_maps(sun_unit, ang)
             self._shadow = sm["shadow"]
             if self.indirect_light:
@@ -973,7 +1315,7 @@ class MoonScene:
                 self.indirect_light, self.view_orientation,
                 id(self.camera), self.parallactic_mode, self.backend,
                 id(self._bounce))
-        if kind == "pose":
+        if kind in ("pose", "mesh_pose"):
             return base
         packed = self._packed
         return base + (id(self._origins), id(self._wincache),
@@ -990,7 +1332,7 @@ class MoonScene:
         self._prefetch = None
         if self.ephem is None or not self.displaced:
             return False
-        if self.backend != "pallas":
+        if self.mesh is None and self.backend != "pallas":
             return False
         level = self.mip_level()
         e = calculate_ephemeris(dt_next, self.config.observer,
@@ -999,6 +1341,16 @@ class MoonScene:
         alevel = self.albedo_level(level)
         ah, aw = self.mip_shapes[alevel]
         sun_unit, ang = self._sun_state_of(e)
+        if self.mesh is not None:
+            r = self._dispatch_mesh_step(self._frame_params(e), sun_unit,
+                                         ang, self._padded_jitters(1), 1,
+                                         level)
+            r["dt"] = dt_next
+            r["token"] = self._prefetch_token(r["kind"])
+            r["pins"] = (self.camera, self._bounce, self._origins,
+                         self._wincache, self._packed)
+            self._prefetch = r
+            return True
         # would update_view(dt_next) keep the pose windows? (the window
         # drift policy of update_view, predicted on the host; a mispredict
         # is only wasted work, never wrong output)
@@ -1049,8 +1401,19 @@ class MoonScene:
                 or pf["dt"] != self.dt_local
                 or pf["token"] != self._prefetch_token(pf["kind"])):
             return None
-        if pf["kind"] == "pose":
+        if pf["kind"] in ("pose", "mesh_pose"):
             self._install_pose_step(pf)
+        elif pf["kind"] == "mesh_timestep":
+            if pf["shadow"] is not None:
+                self._shadow = pf["shadow"]
+            self._shadow_dirty = False
+            if pf["bounce"] is not None:
+                self._bounce = pf["bounce"]
+                self._bounce_basis = pf["bounce_basis"]
+                self._bounce_key = pf["bounce_key"]
+            self._packed = self._packed._replace(swin=pf["swin"],
+                                                 scal=pf["scal"])
+            self._shadowwin = blocked.FUSED_SHADOW_STATE
         else:
             self._install_timestep(pf)
             self._packed = self._packed._replace(swin=pf["swin"],
@@ -1065,6 +1428,14 @@ class MoonScene:
         if self.ephem is None:
             self.update_view(self.dt_local)
         level = self.mip_level()
+        if not (self.mesh is not None and self.displaced):
+            # a banded level reached off the mesh path (the smooth-sphere
+            # preview): the finest coarser replicated level. The mesh path
+            # renders banded levels itself; bumping there would mix two
+            # levels in one accumulation
+            while (self.mips[level] is None
+                   or self.albedo_mips[level] is None):
+                level += 1
         h, w = self.mip_shapes[level]
         if self._accum_n == 0:
             jitter = torch.zeros(2, dtype=torch.float32, device=self.device)
@@ -1073,7 +1444,10 @@ class MoonScene:
                 np.asarray(self._rng.random(2) - 0.5, np.float32),
                 device=self.device)
 
-        if self.backend in ("blocked", "pallas") and self.displaced:
+        if self.mesh is not None and self.displaced:
+            rgb, hitbuf = self._mesh_step(self._jitter_rows(jitter), 1, level)
+            out = render_mod.RenderOutput(rgb=rgb, hitbuf=hitbuf)
+        elif self.backend in ("blocked", "pallas") and self.displaced:
             geom = blocked.block_rays(
                 self.render_basis(), self._fp.rotation, jitter, self.height,
                 self.width, self.h_min, maxmap=self.maxmap)
@@ -1126,8 +1500,8 @@ class MoonScene:
         """Accumulate up to n_frames samples: the march path's first
         samples in one burst, everything else sample by sample."""
         n = n_frames if n_frames is not None else self.config.accumulation_frames
-        if (self.backend == "pallas" and self.displaced
-                and self._accum_n == 0 and n > 0):
+        if ((self.backend == "pallas" or self.mesh is not None)
+                and self.displaced and self._accum_n == 0 and n > 0):
             self.render_accumulation_burst(n)
             return
         while self._accum_n < n:
@@ -1156,6 +1530,161 @@ class MoonScene:
         rows[0] = jitter
         return rows
 
+    # ---- the mesh: image strips over several devices ----------------------
+
+    def _mesh_step(self, jitters, n_samples: int, level: int):
+        """A mesh-mode render with the cached-pose split of the
+        single-device paths: a pose-stable re-accumulation is one burst
+        from the resident per-strip windows, a Q/W time step the
+        phi-wedge scan plus one strip program on those windows, and only a
+        pose or level change extracts. The caches live per device in the
+        scene's usual fields, so update_view's drift policy applies
+        unchanged. Returns (rgb, hitbuf) on the scene's device."""
+        from moonrtx_tpu_torch.parallel import (
+            render_accumulate_sharded,
+            render_timestep_sharded,
+        )
+
+        h, w = self.mip_shapes[level]
+        alevel = self.albedo_level(level)
+        ah, aw = self.mip_shapes[alevel]
+        use_bg = self.starmap is not None
+        bg = self.background()
+        pose_valid = (self._origins is not None
+                      and self._cache_level == level
+                      and self._packed is not None)
+        sun_valid = (not self.shadows_on) or (
+            self._shadowwin is not None and not self._shadow_dirty)
+
+        if pose_valid and sun_valid:
+            sparams = self.shadow_args()[1] if self.shadows_on else None
+            return render_accumulate_sharded(
+                self.mesh, self._packed, sparams, bg, self._rep(self.maxmap),
+                self.render_basis(), self._fp, jitters, self.height,
+                self.width, h, w, ah, aw, self.h_min, n_samples=n_samples,
+                use_shadow=self.shadows_on, use_bg=use_bg)
+        if pose_valid:
+            smap, sparams = self.shadow_args()
+            rgb, hitbuf, swin_p, scal = render_timestep_sharded(
+                self.mesh, smap, sparams, self._bounce, self._wincache,
+                self._origins, self._packed.hwin, self._packed.awin, bg,
+                self._rep(self.maxmap), self.render_basis(), self._fp,
+                jitters, self.height, self.width, h, w, ah, aw, self.h_min,
+                n_samples=n_samples, use_shadow=True, use_bg=use_bg)
+            self._packed = self._packed._replace(swin=swin_p, scal=scal)
+            self._shadowwin = blocked.FUSED_SHADOW_STATE
+            return rgb, hitbuf
+
+        smap = sparams = None
+        if self.shadows_on:
+            smap, sparams = self.shadow_args()
+        rgb, hitbuf, org, cache, packed = self._pose_program_sharded(
+            jitters, n_samples, level, smap, sparams, bg, use_bg, self._fp,
+            bounce=self._bounce)
+        self._origins = org
+        self._wincache = cache
+        self._cache_level = level
+        self._window_drift = 0.0
+        self._hbound = None  # the strips derive their chord bounds per call
+        self._packed = packed
+        self._shadowwin = (blocked.FUSED_SHADOW_STATE
+                           if self.shadows_on else None)
+        return rgb, hitbuf
+
+    def _pose_program_sharded(self, jitters, n_samples: int, level: int,
+                              smap, sparams, bg, use_bg: bool, fp,
+                              bounce=None):
+        """The mesh pose program, routed by map placement: replicated maps
+        go through render_pose_sharded, a banded render level through the
+        banded burst with its caches returned (once assembled they no
+        longer depend on the map layout, so time steps and
+        re-accumulations of banded scenes use the same cached programs)."""
+        from moonrtx_tpu_torch.parallel import (
+            render_burst_pallas_hfshard,
+            render_pose_sharded,
+        )
+
+        h, w = self.mip_shapes[level]
+        alevel = self.albedo_level(level)
+        ah, aw = self.mip_shapes[alevel]
+        nlevel = min(level + 1, len(self.mips) - 1)
+        nalevel = min(alevel + 1, len(self.albedo_mips) - 1)
+        # at the coarsest level the "next" map aliases the render map, so
+        # striding is off there, like the single-device max_qexp guard
+        max_qexp = max(0, min(1, len(self.mips) - 1 - level,
+                              len(self.albedo_mips) - 1 - alevel))
+        slopes = self._rep_levels(self.slope_maps, level, 2)
+        if self.hf_sharded():
+            bmips = (self._banded_mip(level), self._banded_mip(nlevel))
+            balb = (self._banded_alb(alevel), self._banded_alb(nalevel))
+            return render_burst_pallas_hfshard(
+                self.mesh, bmips, balb, self._rep(self.maxmap),
+                self.render_basis(), fp, jitters, self.height, self.width,
+                h, w, ah, aw, self.h_min, shadow_map=smap, smap_params=sparams,
+                bounce_map=bounce, n_samples=n_samples,
+                use_shadow=self.shadows_on, h_scale=self.h_scale,
+                h_offset=self.h_offset, a_scale=self.a_scale,
+                slope_maps=slopes, return_caches=True, background=bg,
+                use_bg=use_bg, max_qexp=max_qexp)
+        return render_pose_sharded(
+            self.mesh, self._rep(self.mips[level]),
+            self._rep(self.mips[nlevel]),
+            self._rep(self.albedo_mips[alevel]),
+            self._rep(self.albedo_mips[nalevel]), slopes, smap, sparams,
+            bounce, bg, self._rep(self.maxmap), self.render_basis(), fp,
+            jitters, self.height, self.width, h, w, ah, aw, self.h_min,
+            n_samples=n_samples, use_shadow=self.shadows_on, use_bg=use_bg,
+            h_scale=self.h_scale, h_offset=self.h_offset,
+            a_scale=self.a_scale, max_qexp=max_qexp)
+
+    def _dispatch_mesh_step(self, fp, sun_unit, ang: float, jitters,
+                            n_samples: int, level: int) -> dict:
+        """Dispatch the next mesh step for a frame state with no scene
+        mutation (the speculative half of _mesh_step): a "mesh_timestep"
+        on the resident windows when they are valid, else a "mesh_pose"."""
+        from moonrtx_tpu_torch.parallel import render_timestep_sharded
+
+        h, w = self.mip_shapes[level]
+        alevel = self.albedo_level(level)
+        ah, aw = self.mip_shapes[alevel]
+        use_bg = self.starmap is not None
+        bg = self.background()
+        acc = self.shadow_accuracy if self.shadows_on else 1
+        sm = None
+        if self.shadows_on:
+            sm = self._dispatch_shadow_maps_mesh(sun_unit, ang, acc)
+            if sm is None:  # the phi grid does not divide: unsharded scan
+                sm = self._dispatch_shadow_maps(np.asarray(sun_unit), ang)
+            smap, sparams = sm["shadow"]
+            bounce_render = sm["bounce_render"]
+        else:
+            smap = sparams = bounce_render = None
+        fresh = dict(
+            shadow=(smap, sparams) if self.shadows_on else None,
+            bounce=None if sm is None else sm["bounce"],
+            bounce_basis=None if sm is None else sm["bounce_basis"],
+            bounce_key=None if sm is None else sm["bounce_key"])
+
+        pose_valid = (self._origins is not None
+                      and self._cache_level == level
+                      and self._packed is not None)
+        if pose_valid:
+            rgb, hitbuf, swin_p, scal = render_timestep_sharded(
+                self.mesh, smap, sparams, bounce_render, self._wincache,
+                self._origins, self._packed.hwin, self._packed.awin, bg,
+                self._rep(self.maxmap), self.render_basis(), fp, jitters,
+                self.height, self.width, h, w, ah, aw, self.h_min,
+                n_samples=n_samples, use_shadow=self.shadows_on,
+                use_bg=use_bg)
+            return dict(kind="mesh_timestep", accum=rgb, hitbuf=hitbuf,
+                        swin=swin_p, scal=scal, **fresh)
+        rgb, hitbuf, org, cache, packed = self._pose_program_sharded(
+            jitters, n_samples, level, smap, sparams, bg, use_bg, fp,
+            bounce=bounce_render)
+        return dict(kind="mesh_pose", accum=rgb, hitbuf=hitbuf,
+                    origins=org, wincache=cache, cache_level=level,
+                    hbound=None, packed=packed, **fresh)
+
     def render_accumulation_burst(self, n_samples: int) -> None:
         """All accumulation samples in one burst through the march kernel."""
         if self.ephem is None:
@@ -1171,6 +1700,13 @@ class MoonScene:
         level = self.mip_level()
         h, w = self.mip_shapes[level]
         jitters = self._padded_jitters(n_samples)
+        if self.mesh is not None and self.displaced:
+            pf = self._consume_prefetch(n_samples)
+            if pf is None:
+                pf = self._mesh_step(jitters, n_samples, level)
+            self._accum, self._hitbuf = pf
+            self._accum_n = n_samples
+            return
 
         # speculative held-key hit: the step was dispatched behind the
         # previous frame (prefetch_time); install + take the results. A

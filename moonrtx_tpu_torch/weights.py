@@ -9,6 +9,11 @@ installs, so both packages can be shown to compute on identical state.
 caches and per-frame tuples (WindowOrigins, WindowCache, ShadowWindows,
 RayGeom, FrameParams, ShadowMapParams, CameraBasis): the fields of the
 other package's tuple, as numpy, become the port's tuple of tensors.
+``per_device_from_shards`` carries sharded state across: an array split
+over a device mesh (anything with ``addressable_shards``, such as a JAX
+array laid out by a mesh), or a NamedTuple of them (WindowOrigins,
+WindowCache, PackedWindows), becomes the port's per-device lists
+(parallel/mesh.py), so cached mesh state compares device by device.
 """
 
 from __future__ import annotations
@@ -65,3 +70,36 @@ def tuple_from_numpy(cls, fields: dict, device="cpu"):
             a = a.astype(np.float32)
         out[name] = torch.from_numpy(a).to(device)
     return cls(**out)
+
+
+def per_device_from_shards(x):
+    """The port's per-device lists from a sharded array: one CPU tensor
+    per addressable shard, in device order (by the shard's offset along
+    the leading axis, then its device id). An array without shards
+    becomes a one-entry list; None stays None. A NamedTuple of such
+    arrays becomes the same NamedTuple with a list per field. Dtypes are
+    kept (bfloat16 too), float64 becomes float32 as in
+    tuple_from_numpy."""
+    if x is None:
+        return None
+    if hasattr(x, "_fields"):
+        return type(x)(*(per_device_from_shards(v) for v in x))
+    shards = getattr(x, "addressable_shards", None)
+    if shards is None:
+        parts = [x]
+    else:
+        def order(s):
+            first = s.index[0] if len(s.index) else slice(None)
+            return (first.start or 0, s.device.id)
+        parts = [s.data for s in sorted(shards, key=order)]
+    out = []
+    for p in parts:
+        a = np.array(p, copy=True)
+        if a.dtype.name == "bfloat16":  # numpy has no bf16: via f32, exact
+            out.append(torch.from_numpy(a.astype(np.float32))
+                       .to(torch.bfloat16))
+            continue
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        out.append(torch.from_numpy(a))
+    return out

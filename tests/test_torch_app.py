@@ -312,6 +312,32 @@ def test_main_reports_the_card(monkeypatch, capsys, entry_points):
     assert name == "render_headless" and kw["device"] is None
 
 
+@pytest.mark.parametrize("cards,devices,ok", [
+    (1, "4", False), (4, "4", True), (2, "0", True), (1, "1", True)])
+def test_main_builds_the_mesh_asked_for(monkeypatch, capsys, entry_points,
+                                        cards, devices, ok):
+    """--devices N needs N cards: on a host with fewer it exits 1 with
+    make_mesh's message and renders nothing; 0 is every card."""
+    monkeypatch.delenv("MOONRTX_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda i=0: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    if not ok:
+        with pytest.raises(SystemExit) as e:
+            cli.main(BASE + ["--devices", devices, "--headless"])
+        assert e.value.code == 1 and entry_points == []
+        out = capsys.readouterr().out
+        assert f"make_mesh({devices})" in out and f"only {cards}" in out
+        return
+    cli.main(BASE + ["--devices", devices, "--headless"])
+    out = capsys.readouterr().out
+    n = cards if devices == "0" else int(devices)
+    assert (f"Devices: {n} " in out) == (n > 1)
+    (name, args, _), = entry_points
+    assert name == "render_headless" and args[0].devices == int(devices)
+
+
 def test_log_event_is_one_json_line(monkeypatch):
     from moonrtx_tpu_torch.utils import log
 

@@ -474,3 +474,112 @@ def test_missed_speculation_leaves_the_step_unchanged(cuda):
     img_s, img_p = spec.render(1), plain.render(1)
     assert np.array_equal(img_s, img_p)
     assert torch.equal(spec._hitbuf, plain._hitbuf)
+
+
+def _mesh_scene(monkeypatch=None, banded=False):
+    """The small march-path scene over a mesh of 4 logical devices on the
+    card (virtual: one card is enough); ``banded`` band-shards its render
+    level, the scan's working-set cap shrunk as tests/test_hfshard.py
+    shrinks it."""
+    from moonrtx_tpu_torch.config import RenderConfig
+    from moonrtx_tpu_torch.data.synth import synthesize_moon
+    from moonrtx_tpu_torch.engine.scene import MoonScene
+    from moonrtx_tpu_torch.parallel import make_mesh
+    from moonrtx_tpu_torch.types import Observer
+
+    if banded:
+        monkeypatch.setattr(
+            "moonrtx_tpu_torch.engine.scene.SHADOW_MAX_TEXELS", 65536)
+    elev, albedo = synthesize_moon(512, 1024, seed=7, n_craters=120)
+    rs = float(elev.max())
+    cfg = RenderConfig(
+        observer=Observer(50.06, 19.94, 219),
+        dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
+        width=256, height=144, shadow_accuracy=4, backend="pallas",
+        devices=4, hbm_budget_gb=1e-6 if banded else 0.0,
+    ).validate()
+    s = MoonScene(cfg, (elev / rs).astype(np.float32), rs, albedo, None,
+                  mesh=make_mesh(4, virtual=True))
+    assert s.hf_sharded() == banded
+    s.update_view()
+    return s
+
+
+def test_mesh_scene_on_card_matches_single_device(cuda):
+    """4 strips and 4 phi wedges on the card: the launch counts the
+    strips, wedges and groups imply, and the frame of one device."""
+    import dataclasses
+
+    from moonrtx_tpu_torch.engine.scene import MoonScene
+
+    s = _mesh_scene()
+    assert s.height == 160                  # 144 padded to 4 strips of 40
+    kernels.reset_launch_counts()
+    img = s.render(4)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {
+        "extract_group_windows": 12, "extract_level_windows": 0,
+        "resample_group_windows": 8, "shadow_factor": 4, "march_shade": 16}
+    from moonrtx_tpu_torch.data.synth import synthesize_moon
+
+    elev, albedo = synthesize_moon(512, 1024, seed=7, n_craters=120)
+    rs = float(elev.max())
+    single = MoonScene(dataclasses.replace(s.config, devices=1),
+                       (elev / rs).astype(np.float32), rs, albedo, None)
+    single.update_view()
+    img1 = single.render(4)
+    d = np.abs(img.astype(int) - img1.astype(int)).max(axis=-1)
+    assert np.percentile(d, 99) <= 2 and d.mean() < 0.2
+    hit = s._hitbuf[:144, :256, 3] > 0
+    hit1 = single._hitbuf[:144, :256, 3] > 0
+    assert (hit == hit1).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("where", ["wedge", "strip", "band"])
+def test_mesh_kernel_shapes_match_plain(cuda, monkeypatch, where):
+    """Each kernel at the shapes the mesh gives it, against its plain
+    version: K3 and K4 on phi wedge 1, K2 on strip 1, K1 on device 1's
+    band-local extraction of the whole frame."""
+    s = _mesh_scene(monkeypatch, banded=where == "band")
+    with kernels.recording() as calls:
+        s.render(2)
+    torch.cuda.synchronize()
+    by = {}
+    for name, call in calls:
+        by.setdefault(name, []).append(call)
+    if where == "wedge":
+        picks = [("shadow_factor", by["shadow_factor"][1]),
+                 ("resample_group_windows", by["resample_group_windows"][2]),
+                 ("resample_group_windows", by["resample_group_windows"][3])]
+    elif where == "strip":
+        picks = [("march_shade", by["march_shade"][2]),
+                 ("march_shade", by["march_shade"][3])]
+    else:
+        picks = [("extract_group_windows", by["extract_group_windows"][2]),
+                 ("extract_group_windows", by["extract_group_windows"][3])]
+        assert picks[0][1]["r0"].shape[0] == (160 // 8) * (256 // 16)
+    plain = {"extract_group_windows": extract.extract_group_windows_plain,
+             "resample_group_windows": extract.resample_group_windows_plain,
+             "shadow_factor": shadow_prefix.shadow_factor_plain,
+             "march_shade": march_shade.march_shade_plain}
+    wrapper = kernels.wrappers()
+    for name, call in picks:
+        got, ref = wrapper[name](**call), plain[name](**call)
+        torch.cuda.synchronize()
+        if name == "extract_group_windows":
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        elif name == "shadow_factor":
+            assert (got - ref).abs().max().item() <= 1e-4
+        elif name == "resample_group_windows":
+            win = extract.decode_affine(extract._cut_windows(
+                call["levels"], call["lvl_idx"], call["r0"], call["c0"],
+                call["wh"], call["ww"]), call["scale"], call["offset"])
+            spread = (win.amax(dim=(1, 2)) - win.amin(dim=(1, 2))).max()
+            assert (got - ref).abs().max().item() <= 4e-3 * spread.item()
+        else:
+            assert (got[3] == ref[3]).float().mean().item() >= 0.999
+            for i in range(3):
+                assert (got[i] - ref[i]).abs().max().item() < 2e-2
+            both = (got[3] > 0.5) & (ref[3] > 0.5)
+            for i in range(4, 8):
+                assert (got[i] - ref[i]).abs()[both].max().item() < 5e-2

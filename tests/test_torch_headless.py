@@ -255,15 +255,26 @@ def test_devices_zero_is_every_local_device(monkeypatch):
 
     elev = np.ones((90, 180), np.float32)
     alb = np.full((90, 180, 3), 0.5, np.float32)
+    from moonrtx_tpu_torch.engine.scene import resolve_mesh
+
     s = MoonScene(_scene_cfg(tconfig, ttypes, devices=0), elev, 1.0, alb,
                   None, device="cpu")
     assert s.device.type == "cpu" and s.mips[0].shape[0] == 90
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        MoonScene(_scene_cfg(tconfig, ttypes, devices=2), elev, 1.0, alb,
-                  None, device="cpu")
-    # on the card, 0 means every card: two of them are not ported yet
+    assert s.mesh is None                   # one CPU device: no mesh
+    # devices=2 on the CPU: a mesh of two logical CPU devices
+    s2 = MoonScene(_scene_cfg(tconfig, ttypes, devices=2), elev, 1.0, alb,
+                   None, device="cpu")
+    assert s2.mesh is not None and s2.mesh.size == 2
+    assert s2.height % (8 * 2) == 0
+    # on the card, 0 means every card: two cards make a mesh of two
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="devices=2"):
-        MoonScene(_scene_cfg(tconfig, ttypes, devices=0), elev, 1.0, alb,
+    mesh = resolve_mesh(_scene_cfg(tconfig, ttypes, devices=0),
+                        torch.device("cuda"))
+    assert mesh.size == 2 and not mesh.virtual
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    # more devices than cards: make_mesh's error, before any upload
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match=r"make_mesh\(4\)"):
+        MoonScene(_scene_cfg(tconfig, ttypes, devices=4), elev, 1.0, alb,
                   None)

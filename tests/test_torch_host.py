@@ -127,10 +127,13 @@ def test_backend_resolution_table(quantize, tmp_path, monkeypatch):
             assert js.backend == "blocked"      # the reference off a TPU
         else:
             assert js.backend == ts.backend, name
-    with pytest.raises(NotImplementedError):
-        TScene(tconfig.RenderConfig(width=128, height=64,
-                                    devices=2).validate(),
-               elev, 1.0, alb, None, device="cpu")
+    # devices=2 on the CPU: a mesh of two logical devices, and the
+    # height padded to whole strips, as the reference pads for its mesh
+    ts = TScene(tconfig.RenderConfig(width=128, height=64,
+                                     devices=2).validate(),
+                elev, 1.0, alb, None, device="cpu")
+    assert ts.mesh is not None and ts.mesh.size == 2
+    assert ts.height == 64 and ts.height % (8 * 2) == 0
 
 
 @pytest.mark.parametrize("quantized", [False, True])
