@@ -32,7 +32,10 @@ from moonrtx_tpu_torch.overlays import (
     draw_overlays,
 )
 from moonrtx_tpu_torch.types import MoonFeature
-from moonrtx_tpu_torch.utils.profiling import FrameStats
+from moonrtx_tpu_torch.utils.profiling import FrameStats, span
+
+# the span of a state-changing call; a call made inside another is part of it
+_event = span("session.event", once=True)
 
 
 class Session:
@@ -88,6 +91,7 @@ class Session:
 
     # ---- time control ----------------------------------------------------
 
+    @_event
     def change_time(self, delta_minutes: int) -> None:
         if delta_minutes == 0:
             return
@@ -127,14 +131,17 @@ class Session:
         else:
             self._prefetch_step_minutes = None
 
+    @_event
     def set_time_to_now(self) -> None:
         self.time_epoch += 1
         self.scene.update_view(datetime.now().astimezone())
 
+    @_event
     def set_time(self, dt_local: datetime) -> None:
         self.time_epoch += 1
         self.scene.update_view(dt_local)
 
+    @_event
     def change_time_step(self, delta: int) -> None:
         self.time_epoch += 1
         self.time_step_minutes = int(np.clip(
@@ -142,13 +149,16 @@ class Session:
 
     # ---- display controls --------------------------------------------------
 
+    @_event
     def change_brightness(self, delta: int) -> None:
         self.scene.set_brightness(self.scene.brightness + delta)
 
+    @_event
     def change_gamma(self, delta: float) -> None:
         new_gamma = round(self.scene.gamma + delta, 1)
         self.scene.gamma = float(np.clip(new_gamma, *C.GAMMA_RANGE))
 
+    @_event
     def toggle_shadow_accuracy(self) -> None:
         """X key: fast <-> accurate terminator shadows
         (reference moon_renderer.py:320-334)."""
@@ -156,12 +166,14 @@ class Session:
 
     # ---- view -----------------------------------------------------------
 
+    @_event
     def set_view_orientation(self, orientation: str) -> None:
         if orientation not in VIEW_ORIENTATIONS:
             return
         self.scene.set_view_orientation(orientation)
         self._rebuild_orientation_dependent_overlays()
 
+    @_event
     def reset_camera(self) -> None:
         """R: restore initial camera, time and orientation
         (reference renderer_navigation.py:124-150)."""
@@ -171,46 +183,56 @@ class Session:
             self.scene.update_view(self.initial_dt_local)
         self.scene.set_camera(self.initial_camera)
 
+    @_event
     def reset_default_view(self) -> None:
         """V: ephemeris default view (renderer_navigation.py:152-170)."""
         if self.scene.view_orientation != self.initial_view_orientation:
             self.set_view_orientation(self.initial_view_orientation)
         self.scene.set_camera(default_camera())
 
+    @_event
     def navigate(self, direction: str) -> None:
         self.scene.set_camera(nav.navigate_view(self.scene.camera, direction))
 
+    @_event
     def rotate_moon_axis(self, direction: str) -> None:
         self.scene.set_camera(nav.rotate_around_moon_axis(
             self.scene.camera, np.asarray(self.scene.ephem.rotation_matrix),
             direction))
 
+    @_event
     def roll(self, direction: str) -> None:
         self.scene.set_camera(nav.roll_view(self.scene.camera, direction))
 
+    @_event
     def pan_tilt(self, dx_px: float, dy_px: float) -> None:
         self.scene.set_camera(nav.pan_tilt_view(
             self.scene.camera, dx_px, dy_px, self.scene.out_height))
 
+    @_event
     def zoom_drag(self, dy_px: float) -> None:
         """Shift + left-drag: continuous zoom (reference README)."""
         self.scene.set_camera(nav.zoom_drag(
             self.scene.camera, dy_px, self.scene.out_height))
 
+    @_event
     def dolly(self, dy_px: float) -> None:
         """Shift + right-drag: move the eye backward/forward."""
         self.scene.set_camera(nav.dolly_view(
             self.scene.camera, dy_px, self.scene.out_height))
 
+    @_event
     def orbit_drag(self, dx_px: float, dy_px: float) -> None:
         """Per-pixel left-drag orbit (reference
         renderer_navigation.py:223-294)."""
         self.scene.set_camera(nav.orbit_drag(
             self.scene.camera, dx_px, dy_px, self.scene.out_height))
 
+    @_event
     def zoom(self, wheel_delta: float) -> None:
         self.scene.set_camera(nav.zoom_fov(self.scene.camera, wheel_delta))
 
+    @_event
     def center_on_cursor(self, x: int, y: int) -> None:
         hx, hy, hz, hd = self.scene.get_hit_at(x, y)
         if hd <= 0:
@@ -220,6 +242,7 @@ class Session:
         self.scene.set_camera(nav.center_on_point(
             self.scene.camera, np.array([hx, hy, hz])))
 
+    @_event
     def center_on_feature(self, feature: MoonFeature) -> None:
         self.scene.set_camera(nav.center_on_feature(
             self.scene.camera, feature,
@@ -227,6 +250,7 @@ class Session:
 
     # ---- picking ----------------------------------------------------------
 
+    @_event
     def pick(self, x: int, y: int) -> tuple[Optional[float], Optional[float]]:
         """Cursor -> selenographic coords + status feature update
         (reference moon_renderer.py:873-888)."""
@@ -244,6 +268,7 @@ class Session:
 
     # ---- measurement --------------------------------------------------------
 
+    @_event
     def start_measurement(self, x: int, y: int) -> bool:
         lat, lon = self.pick(x, y)
         if lat is None:
@@ -253,6 +278,7 @@ class Session:
         self.measure_start = (lat, lon)
         return True
 
+    @_event
     def update_measurement(self, x: int, y: int) -> None:
         if not self.measuring:
             return
@@ -267,6 +293,7 @@ class Session:
             self.scene.elevation_m_at(lat2, lon2)
             - self.scene.elevation_m_at(lat1, lon1))
 
+    @_event
     def finish_measurement(self, x: int, y: int) -> None:
         if not self.measuring:
             return
@@ -289,26 +316,31 @@ class Session:
             self._spot_graph = build_spot_labels(
                 [f for f in self.features if f.spot_label], fh, fv)
 
+    @_event
     def toggle_grid(self) -> None:
         self.grid_visible = not self.grid_visible
         if self.grid_visible and self._grid_graphs is None:
             self._grid_graphs = build_grid_graphs(*self._flips())
 
+    @_event
     def toggle_standard_labels(self) -> None:
         self.standard_labels_visible = not self.standard_labels_visible
         if self.standard_labels_visible and self._standard_graph is None:
             self._standard_graph = build_standard_labels(
                 [f for f in self.features if f.standard_label], *self._flips())
 
+    @_event
     def toggle_spot_labels(self) -> None:
         self.spot_labels_visible = not self.spot_labels_visible
         if self.spot_labels_visible and self._spot_graph is None:
             self._spot_graph = build_spot_labels(
                 [f for f in self.features if f.spot_label], *self._flips())
 
+    @_event
     def toggle_pins(self) -> None:
         self.pins_visible = not self.pins_visible
 
+    @_event
     def toggle_pin_at(self, digit: int, x: int, y: int) -> None:
         if not self.pins_visible:
             return
@@ -320,10 +352,12 @@ class Session:
             return
         self.pins[digit] = build_pin(digit, lat, lon, *self._flips())
 
+    @_event
     def toggle_parallactic(self) -> None:
         self.scene.parallactic_mode = not self.scene.parallactic_mode
         self.scene.update_view()
 
+    @_event
     def toggle_info_panel(self) -> None:
         self.show_info_panel = not self.show_info_panel
 
@@ -341,6 +375,7 @@ class Session:
             graphs += list(self.pins.values())
         return graphs
 
+    @span("session.frame")
     def frame(self, n_accum: Optional[int] = None) -> np.ndarray:
         """Accumulated frame + composited overlays (uint8 RGB)."""
         # copy: cv2 draws in place, and the display array may share memory
@@ -433,6 +468,7 @@ class Session:
 
     # ---- key dispatch ----------------------------------------------------------
 
+    @_event
     def handle_key(self, keysym: str, shift: bool = False, ctrl: bool = False,
                    cursor: tuple = (0, 0)) -> Optional[str]:
         """Full reference key map (moon_renderer.py:780-866). Returns an

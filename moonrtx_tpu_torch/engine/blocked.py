@@ -53,6 +53,7 @@ from moonrtx_tpu_torch.ops import march_shade as mk
 from moonrtx_tpu_torch.ops import sampler
 from moonrtx_tpu_torch.ops import shadow_scan
 from moonrtx_tpu_torch.ops.sampler import latlon_to_rowcol, window_bilinear
+from moonrtx_tpu_torch.utils.profiling import span
 
 # Block layout: 8x16 pixels = 128 rays per block, row-major; GROUP
 # horizontally adjacent blocks make one strip of the march kernel.
@@ -588,6 +589,7 @@ def lookup_shadow_windows(sw: ShadowWindows, smap_params, n_phi: int, p):
     return torch.where(theta_ok, val, 0.0), bval
 
 
+@span("scene.sample")
 def render_frame_blocked(cache: WindowCache, org: WindowOrigins,
                          geom: RayGeom,
                          shadow_windows: Optional[ShadowWindows],
@@ -752,6 +754,7 @@ def render_frame_pallas(cache: WindowCache, org: WindowOrigins,
     return RenderOutput(rgb=rgb, hitbuf=hitbuf)
 
 
+@span("scene.burst")
 def _burst_core(packed: PackedWindows, smap_params, background, maxmap,
                 basis: CameraBasis, fp: FrameParams, jitters, height: int,
                 width: int, h: int, w: int, h_min: float, ah: int, aw: int,
@@ -824,18 +827,21 @@ def render_pose_pallas(mips, albedo_mips, slope_maps, smap, smap_params,
 
     Returns (rgb, hitbuf, org, cache, hwin_p, awin_p, swin_p, scal,
     h_bound) so the caller can keep the caches for later bursts."""
-    geom0 = block_rays(basis, fp.rotation, jitters[0], height, width,
-                       h_min, maxmap=maxmap)
-    org = window_origins(geom0, h, w, mips[0].shape[1], ah, aw,
-                         albedo_mips[0].shape[1], max_qexp=max_qexp,
-                         slope_maps=slope_maps)
-    cache = extract_window_cache(mips, albedo_mips, org, h_scale=h_scale,
-                                 h_offset=h_offset, a_scale=a_scale)
-    sw = (build_shadow_windows(smap, smap_params, geom0, bounce_map=bmap)
-          if use_shadow else None)
-    hwin_p, awin_p = pack_pose_windows(cache)
-    swin_p, scal = _pack_sun_parts(cache, org, sw)
-    packed = PackedWindows(hwin=hwin_p, awin=awin_p, swin=swin_p, scal=scal)
+    with span("scene.pose"):
+        geom0 = block_rays(basis, fp.rotation, jitters[0], height, width,
+                           h_min, maxmap=maxmap)
+        org = window_origins(geom0, h, w, mips[0].shape[1], ah, aw,
+                             albedo_mips[0].shape[1], max_qexp=max_qexp,
+                             slope_maps=slope_maps)
+        cache = extract_window_cache(mips, albedo_mips, org,
+                                     h_scale=h_scale, h_offset=h_offset,
+                                     a_scale=a_scale)
+        sw = (build_shadow_windows(smap, smap_params, geom0, bounce_map=bmap)
+              if use_shadow else None)
+        hwin_p, awin_p = pack_pose_windows(cache)
+        swin_p, scal = _pack_sun_parts(cache, org, sw)
+        packed = PackedWindows(hwin=hwin_p, awin=awin_p, swin=swin_p,
+                               scal=scal)
     rgb, hitbuf = _burst_core(packed, smap_params, background, maxmap,
                               basis, fp, jitters, height, width, h, w,
                               h_min, ah, aw, n_samples, n_coarse,
@@ -875,11 +881,13 @@ def render_timestep_pallas(smap, smap_params, bmap, cache: WindowCache,
     the sun-side pack for later pose-stable frames. hbound: the cached
     pose-local per-block chord bound (RayGeom.h_bound), which skips the
     maxmap gather in the ray setup."""
-    geom0 = block_rays(basis, fp.rotation, jitters[0], height, width,
-                       h_min, maxmap=maxmap, h_bound=hbound)
-    sw = build_shadow_windows(smap, smap_params, geom0, bounce_map=bmap)
-    swin_p, scal = _pack_sun_parts(cache, org, sw)
-    packed = PackedWindows(hwin=hwin_p, awin=awin_p, swin=swin_p, scal=scal)
+    with span("scene.timestep"):
+        geom0 = block_rays(basis, fp.rotation, jitters[0], height, width,
+                           h_min, maxmap=maxmap, h_bound=hbound)
+        sw = build_shadow_windows(smap, smap_params, geom0, bounce_map=bmap)
+        swin_p, scal = _pack_sun_parts(cache, org, sw)
+        packed = PackedWindows(hwin=hwin_p, awin=awin_p, swin=swin_p,
+                               scal=scal)
     rgb, hitbuf = _burst_core(packed, smap_params, background, maxmap,
                               basis, fp, jitters, height, width, h, w,
                               h_min, ah, aw, n_samples, n_coarse, True,
@@ -908,11 +916,12 @@ def render_timestep_scan_pallas(stex, bmap, sun_basis, sun_ang_radius,
     the caller can keep it for pose changes, hs (scan-grid heights) so a
     threshold crossing can queue shadow_scan.bounce_refresh without a
     second scan."""
-    factor, hs = shadow_scan.scan_wedge(
-        stex, sun_basis, sun_ang_radius, sh, sw, n_coarse_scan, n_fine,
-        n_phi, 0, n_phi, blocked_resample=True, h_scale=h_scale,
-        h_offset=h_offset, return_heights=True)
-    smap = torch.cat([factor, factor[:, :shadow_scan.PHI_PAD]], dim=1)
+    with span("scene.timestep"):
+        factor, hs = shadow_scan.scan_wedge(
+            stex, sun_basis, sun_ang_radius, sh, sw, n_coarse_scan, n_fine,
+            n_phi, 0, n_phi, blocked_resample=True, h_scale=h_scale,
+            h_offset=h_offset, return_heights=True)
+        smap = torch.cat([factor, factor[:, :shadow_scan.PHI_PAD]], dim=1)
     smap_params = shadow_scan._params(sun_basis, n_coarse_scan, n_fine,
                                       n_phi, sun_ang_radius)
     rgb, hitbuf, swin_p, scal = render_timestep_pallas(

@@ -71,6 +71,7 @@ from moonrtx_tpu_torch.ops import sampler
 from moonrtx_tpu_torch.ops import shadow_scan
 from moonrtx_tpu_torch.types import Camera, MoonEphemeris
 from moonrtx_tpu_torch.utils.log import log_event
+from moonrtx_tpu_torch.utils.profiling import count, span
 
 # Shadow scans sample the heightfield at the scan grid's own resolution
 # (<= 2304x4096 cells); building from a much finer mip wastes bandwidth.
@@ -423,6 +424,9 @@ class MoonScene:
         self._shadowwin = None       # ShadowWindows, or FUSED_SHADOW_STATE
         self._packed = None          # PackedWindows (march-kernel layout)
         self._cache_level = None
+        # a date or camera change dropped the windows and counted it, so
+        # their rebuild is not counted again as windows.rebuilt.other
+        self._pose_dropped = False
 
     # ---- heightfield band sharding (per-device memory placement) --------
 
@@ -703,10 +707,12 @@ class MoonScene:
         self._hitbuf = fc["hitbuf"]
         self._accum_n = fc["accum_n"]
         self._flip_ready = True
+        self._pose_dropped = False
         if self._prefetch is not None \
                 and self._prefetch["dt"] != self.dt_local:
-            self._prefetch = None  # speculation missed: free its buffers
+            self._discard_prefetch()  # speculation missed: free its buffers
 
+    @span("scene.update_view")
     def update_view(self, dt_local: Optional[datetime] = None) -> MoonEphemeris:
         """Recompute ephemeris-driven state (reference moon_renderer.py:638-664)."""
         self.last_flip_hit = False
@@ -725,7 +731,9 @@ class MoonScene:
                 self._flip_cache = snap
                 self._restore_step(fc)
                 self.last_flip_hit = True
+                count("flip.hit")
                 return self.ephem
+            count("flip.miss")
             if snap is not None:
                 self._flip_cache = snap
         if dt_local is not None:
@@ -739,7 +747,7 @@ class MoonScene:
         self._shadow_dirty = True
         if (self._prefetch is not None
                 and self._prefetch["dt"] != self.dt_local):
-            self._prefetch = None  # speculation missed: free its buffers
+            self._discard_prefetch()  # speculation missed: free its buffers
         # Body-frame footprints move with the rotation; sampling windows
         # carry a margin of several texels, so small drifts (successive
         # time steps rotate the Moon ~0.14 deg / 15 min) reuse the cached
@@ -751,7 +759,9 @@ class MoonScene:
         else:
             drift = _rotation_angle_deg(np.asarray(e.rotation_matrix),
                                         prev_rotation)
-            if not self._windows_hold(drift):
+            hold = self._windows_hold(drift)
+            self._windows_decided(hold, "time")
+            if not hold:
                 self._origins = None
             self._window_drift = self._window_drift + drift
         if self._origins is None:
@@ -793,6 +803,7 @@ class MoonScene:
                     self.brightness, self.ephem)), device=self.device))
         self.reset_accumulation()
 
+    @span("scene.set_camera")
     def set_camera(self, camera: Camera) -> None:
         """Install a new camera pose. Small moves (per-pixel orbit/roll
         drag steps) REUSE the cached sampling windows: body-frame ray
@@ -806,13 +817,31 @@ class MoonScene:
         self._basis = None
         self._background = None
         self.reset_accumulation()
-        if drift is not None and self._origins is not None:
-            hold = self._windows_hold(drift)
-            self._window_drift = self._window_drift + drift
+        if self._origins is not None:
+            hold = drift is not None and self._windows_hold(drift)
+            self._windows_decided(hold, "camera")
+            if drift is not None:
+                self._window_drift = self._window_drift + drift
             if hold:
                 return
         self._origins = None
         self._hbound = None
+
+    def _windows_decided(self, kept: bool, cause: str) -> None:
+        """Count a date or camera change's decision on the cached windows:
+        kept, or dropped for a rebuild (``cause``: "time" or "camera")."""
+        if kept:
+            count("windows.kept")
+        else:
+            count("windows.rebuilt." + cause)
+            self._pose_dropped = True
+
+    def _windows_built(self) -> None:
+        """Count a build of the pose windows that no counted date or camera
+        change asked for (first pose, level or orientation change)."""
+        if not self._pose_dropped:
+            count("windows.rebuilt.other")
+        self._pose_dropped = False
 
     def _windows_hold(self, drift: float) -> bool:
         """Whether the cached windows absorb ``drift`` more degrees of
@@ -985,15 +1014,18 @@ class MoonScene:
             and self._bounce_key == (slevel, acc)
             and _rotation_angle_deg(basis_np, self._bounce_basis)
             <= BOUNCE_REUSE_DEG)
+        if self.indirect_light:
+            count("bounce.reused" if reuse else "bounce.rebuilt")
         sun_basis = torch.as_tensor(np.asarray(basis_np, np.float32),
                                     device=self.device)
-        smap, bmap = build_shadow_map_sharded(
-            self.mesh, self._rep(self.mips[slevel]), sun_basis, ang, h, w,
-            ncs, nf, nph,
-            alb_lum=(self._rep(self.alb_lum(slevel))
-                     if self.indirect_light and not reuse else None),
-            h_scale=self.h_scale, h_offset=self.h_offset,
-            n_bounces=self.indirect_bounces)
+        with span("scene.scan"):
+            smap, bmap = build_shadow_map_sharded(
+                self.mesh, self._rep(self.mips[slevel]), sun_basis, ang, h,
+                w, ncs, nf, nph,
+                alb_lum=(self._rep(self.alb_lum(slevel))
+                         if self.indirect_light and not reuse else None),
+                h_scale=self.h_scale, h_offset=self.h_offset,
+                n_bounces=self.indirect_bounces)
         params = shadow_scan._params(sun_basis, ncs, nf, nph, ang)
         if reuse:
             return dict(shadow=(smap, params), bounce_render=self._bounce,
@@ -1039,6 +1071,7 @@ class MoonScene:
             self._shadow_dirty = False
         return self._shadow
 
+    @span("scene.scan")
     def _dispatch_shadow_maps(self, sun_unit: np.ndarray, ang: float) -> dict:
         """Build the shadow (and, as needed, bounce) maps for a sun state
         without mutating scene state: the shared scan half of shadow_args
@@ -1066,6 +1099,7 @@ class MoonScene:
                 and self._bounce_key == (slevel, acc)
                 and _rotation_angle_deg(basis_np, self._bounce_basis)
                 <= BOUNCE_REUSE_DEG)
+            count("bounce.reused" if reuse else "bounce.rebuilt")
             if reuse:
                 shadow = shadow_scan.build_shadow_map(
                     stex, sh_, sw_, sun, ang, accuracy=acc,
@@ -1109,15 +1143,18 @@ class MoonScene:
             # stride levels available above the render level (q up to 4)
             max_qexp = min(2, len(self.mips) - 1 - level,
                            len(self.albedo_mips) - 1 - alevel)
-            self._origins = blocked.window_origins(
-                geom, h, w, self.mips[level].shape[1], ah, aw,
-                self.albedo_mips[alevel].shape[1], max_qexp=max_qexp,
-                slope_maps=self.slope_maps[level:level + max_qexp + 1])
-            self._wincache = blocked.extract_window_cache(
-                tuple(self.mips[level:level + max_qexp + 1]),
-                tuple(self.albedo_mips[alevel:alevel + max_qexp + 1]),
-                self._origins, h_scale=self.h_scale, h_offset=self.h_offset,
-                a_scale=self.a_scale, grouped=grouped)
+            with span("scene.pose"):
+                self._origins = blocked.window_origins(
+                    geom, h, w, self.mips[level].shape[1], ah, aw,
+                    self.albedo_mips[alevel].shape[1], max_qexp=max_qexp,
+                    slope_maps=self.slope_maps[level:level + max_qexp + 1])
+                self._wincache = blocked.extract_window_cache(
+                    tuple(self.mips[level:level + max_qexp + 1]),
+                    tuple(self.albedo_mips[alevel:alevel + max_qexp + 1]),
+                    self._origins, h_scale=self.h_scale,
+                    h_offset=self.h_offset, a_scale=self.a_scale,
+                    grouped=grouped)
+            self._windows_built()
             self._cache_level = level
             self._shadowwin = None
             self._packed = None
@@ -1133,23 +1170,25 @@ class MoonScene:
             # changes (shadow_args rebuilds them on time change only); the
             # windows are the geometry-dependent half
             smap, sparams = self.shadow_args()
-            if grouped:
-                sw, swin_p, scal = blocked.build_shadow_state_from_maps(
-                    smap, sparams, geom, self._wincache, self._origins,
-                    bmap=self._bounce)
-                self._shadowwin = sw
-                if self._packed is None:
-                    # pose changed too: repack the heavy pose tensors
-                    hwin_p, awin_p = blocked.pack_pose_windows(self._wincache)
+            with span("scene.timestep"):
+                if grouped:
+                    sw, swin_p, scal = blocked.build_shadow_state_from_maps(
+                        smap, sparams, geom, self._wincache, self._origins,
+                        bmap=self._bounce)
+                    self._shadowwin = sw
+                    if self._packed is None:
+                        # pose changed too: repack the heavy pose tensors
+                        hwin_p, awin_p = blocked.pack_pose_windows(
+                            self._wincache)
+                    else:
+                        hwin_p, awin_p = self._packed.hwin, self._packed.awin
+                    self._packed = blocked.PackedWindows(
+                        hwin=hwin_p, awin=awin_p, swin=swin_p, scal=scal)
                 else:
-                    hwin_p, awin_p = self._packed.hwin, self._packed.awin
-                self._packed = blocked.PackedWindows(
-                    hwin=hwin_p, awin=awin_p, swin=swin_p, scal=scal)
-            else:
-                self._shadowwin = blocked.build_shadow_windows(
-                    smap, sparams, geom, bounce_map=self._bounce,
-                    grouped=False)
-                self._packed = None
+                    self._shadowwin = blocked.build_shadow_windows(
+                        smap, sparams, geom, bounce_map=self._bounce,
+                        grouped=False)
+                    self._packed = None
         if grouped and self._packed is None:
             assert self._shadowwin is not blocked.FUSED_SHADOW_STATE, (
                 "fused shadow state requires the packed windows it lives in")
@@ -1198,6 +1237,8 @@ class MoonScene:
             h_offset=self.h_offset, hbound=self._hbound)
         params = shadow_scan._params(sun_basis, ncs, nf, nph, ang)
         bounce = bounce_basis = None
+        count("bounce.rebuilt" if drift > BOUNCE_REUSE_DEG
+              else "bounce.reused")
         if drift > BOUNCE_REUSE_DEG:
             # refresh the bounce map behind the frame: the device renders
             # the frame first (stream order), the rebuild fills the gap
@@ -1278,6 +1319,7 @@ class MoonScene:
             self._bounce_key = r["bounce_key"]
         self._origins = r["origins"]
         self._wincache = r["wincache"]
+        self._windows_built()
         self._cache_level = r["cache_level"]
         self._window_drift = 0.0
         self._hbound = r["hbound"]
@@ -1322,6 +1364,13 @@ class MoonScene:
                        None if packed is None else id(packed.hwin),
                        self._cache_level)
 
+    def _discard_prefetch(self) -> None:
+        """Drop a speculation that will not be consumed."""
+        if self._prefetch is not None:
+            count("prefetch.discarded")
+            self._prefetch = None
+
+    @span("scene.prefetch")
     def prefetch_time(self, dt_next: datetime) -> bool:
         """Speculatively dispatch the NEXT time step's scan+render behind
         the current frame: when the held key delivers update_view(dt_next),
@@ -1329,7 +1378,7 @@ class MoonScene:
         only the readback. Returns True when a speculation was dispatched.
         Mis-speculation is safe: results install only if the next
         update_view matches the datetime and _prefetch_token."""
-        self._prefetch = None
+        self._discard_prefetch()
         if self.ephem is None or not self.displaced:
             return False
         if self.mesh is None and self.backend != "pallas":
@@ -1350,6 +1399,8 @@ class MoonScene:
             r["pins"] = (self.camera, self._bounce, self._origins,
                          self._wincache, self._packed)
             self._prefetch = r
+            count("prefetch.dispatched."
+                  + ("pose" if r["kind"] == "mesh_pose" else "timestep"))
             return True
         # would update_view(dt_next) keep the pose windows? (the window
         # drift policy of update_view, predicted on the host; a mispredict
@@ -1390,6 +1441,7 @@ class MoonScene:
         r["pins"] = (self.camera, self._bounce, self._origins,
                      self._wincache, self._packed)
         self._prefetch = r
+        count("prefetch.dispatched." + r["kind"])
         return True
 
     def _consume_prefetch(self, n_samples: int):
@@ -1397,10 +1449,14 @@ class MoonScene:
         scene's current datetime + state token and return (accum, hitbuf);
         None otherwise."""
         pf, self._prefetch = self._prefetch, None
-        if (pf is None or n_samples != 1 or not self._shadow_dirty
+        if pf is None:
+            return None
+        if (n_samples != 1 or not self._shadow_dirty
                 or pf["dt"] != self.dt_local
                 or pf["token"] != self._prefetch_token(pf["kind"])):
+            count("prefetch.discarded")
             return None
+        count("prefetch.consumed")
         if pf["kind"] in ("pose", "mesh_pose"):
             self._install_pose_step(pf)
         elif pf["kind"] == "mesh_timestep":
@@ -1479,13 +1535,15 @@ class MoonScene:
                     ah, aw, n_phi=n_phi)
         else:
             shadow_fn_args = self.shadow_args()
-            out = render_mod.render_frame(
-                self.mips[level], self.albedo_mips[level], self.background(),
-                shadow_fn_args, self.render_basis(), self._fp, jitter,
-                self.height, self.width, h, w, self.h_min,
-                h_mean=1.0 / self.radius_scale, displaced=self.displaced,
-                bounce_map=(self._bounce if shadow_fn_args is not None
-                            else None))
+            with span("scene.sample"):
+                out = render_mod.render_frame(
+                    self.mips[level], self.albedo_mips[level],
+                    self.background(), shadow_fn_args, self.render_basis(),
+                    self._fp, jitter, self.height, self.width, h, w,
+                    self.h_min, h_mean=1.0 / self.radius_scale,
+                    displaced=self.displaced,
+                    bounce_map=(self._bounce if shadow_fn_args is not None
+                                else None))
 
         if self._accum_n == 0 or self._accum is None:
             self._accum = out.rgb
@@ -1583,6 +1641,7 @@ class MoonScene:
             bounce=self._bounce)
         self._origins = org
         self._wincache = cache
+        self._windows_built()
         self._cache_level = level
         self._window_drift = 0.0
         self._hbound = None  # the strips derive their chord bounds per call
@@ -1776,6 +1835,7 @@ class MoonScene:
                 h_offset=self.h_offset, a_scale=self.a_scale)
             self._origins = org
             self._wincache = cache
+            self._windows_built()
             self._cache_level = level
             self._window_drift = 0.0
             self._hbound = hbound
@@ -1787,6 +1847,7 @@ class MoonScene:
         self._hitbuf = hitbuf
         self._accum_n = n_samples
 
+    @span("scene.display")
     def display(self) -> np.ndarray:
         if self._accum_n == 0:
             self.ensure_accumulated(1)

@@ -35,6 +35,7 @@ from moonrtx_tpu_torch.engine.geometry import unit_to_latlon
 from moonrtx_tpu_torch.ops import extract as extract_ops
 from moonrtx_tpu_torch.ops import sampler
 from moonrtx_tpu_torch.ops import shadow_prefix
+from moonrtx_tpu_torch.utils.profiling import span
 
 BAND_SPLIT_DEG = 75.0
 THETA_MAX_DEG = 105.0
@@ -390,6 +391,7 @@ def _sector_collapse(hs, rad, theta0, dphi, n_levels: int):
     return s2_acc, j_acc
 
 
+@span("scene.bounce")
 def bounce_from_parts(hs, factor, alb_s, n_coarse: int, n_fine: int,
                       n_phi: int, n_bounces: int = 1):
     """Terrain interreflection map on the scan grid (1 or 2 bounces): a

@@ -1,23 +1,106 @@
-"""Profiling: frame-time statistics and torch.profiler traces.
+"""Profiling: the program's spans and counters, and frame-time statistics.
 
-Port of moonrtx_tpu/utils/profiling.py. FrameStats (a copy) feeds the
-status bar / bench; trace() wraps torch.profiler for TensorBoard-
-compatible traces of render bursts (the card's kernels included when one
-is present), annotate() names a region in them.
+``span(name)`` marks a region of the program in a torch.profiler trace,
+as a ``with`` block or as a function decorator. While no profiler is
+active it costs one check of the profiler's own enabled flag and records
+nothing. While one is, the region is a profiler range named
+``moonrtx.<name>`` on the profiler's clock, the clock of the device
+events; spans nest as the calls do. The range is an operator range
+(``RecordScope.FUNCTION``), not a user annotation: the profiler then
+gives it no device-side copy, and the device work launched inside it is
+found through the launches' correlation ids (tools/torch_frame_profile.py
+reads them so).
+
+``count(name, n)`` adds to a named counter, always on, like the kernel
+wrappers' ``launches``; ``counters()`` copies them all, the wrappers'
+launches included as ``launch.<wrapper>``.
+
+FrameStats (a copy of the reference's) feeds the status bar.
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
-import tempfile
+import functools
+import threading
 import time
-from collections import deque
+from collections import defaultdict, deque
 from typing import Optional
+
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+PREFIX = "moonrtx."
+
+_counts: defaultdict = defaultdict(int)
+
+
+class span:
+    """A named region of the program in a profiler trace (module doc).
+
+    ``with span("scene.pose"): ...`` or ``@span("scene.update_view")``.
+    With ``once``, a decorated function opens no second range while the
+    same span is already open on the thread (an event that calls another
+    event is one event)."""
+
+    __slots__ = ("name", "_rf", "_open")
+
+    def __init__(self, name: str, once: bool = False):
+        self.name = name
+        self._rf = None
+        self._open = threading.local() if once else None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self._rf = _RecordFunctionFast(PREFIX + self.name)
+            self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        rf, self._rf = self._rf, None
+        if rf is not None:
+            rf.__exit__(*exc)
+        return False
+
+    def __call__(self, fn):
+        name, opened = PREFIX + self.name, self._open
+
+        @functools.wraps(fn)
+        def traced(*args, **kwargs):
+            if not _profiler_enabled():
+                return fn(*args, **kwargs)
+            if opened is None:
+                with _RecordFunctionFast(name):
+                    return fn(*args, **kwargs)
+            if getattr(opened, "depth", 0):
+                return fn(*args, **kwargs)
+            opened.depth = 1
+            try:
+                with _RecordFunctionFast(name):
+                    return fn(*args, **kwargs)
+            finally:
+                opened.depth = 0
+
+        return traced
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _counts[name] += n
+
+
+def counters() -> dict:
+    """A copy of every counter, with each kernel wrapper's launches as
+    ``launch.<wrapper>``."""
+    from moonrtx_tpu_torch import kernels
+
+    out = dict(_counts)
+    for wrapper, n in kernels.launch_counts().items():
+        out["launch." + wrapper] = n
+    return out
 
 
 class FrameStats:
-    """Rolling frame-time statistics (for the status bar and bench)."""
+    """Rolling frame-time statistics (for the status bar)."""
 
     def __init__(self, window: int = 60):
         self.times = deque(maxlen=window)
@@ -53,30 +136,3 @@ class FrameStats:
         if rays_per_frame:
             txt += f" {self.mrays_per_s(rays_per_frame):.0f} Mray/s"
         return txt
-
-
-@contextlib.contextmanager
-def trace(log_dir: Optional[str] = None):
-    """Capture a trace of the enclosed block (TensorBoard format) into
-    log_dir, by default moonrtx_trace under the temporary directory."""
-    import torch
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-
-    if log_dir is None:
-        log_dir = os.path.join(tempfile.gettempdir(), "moonrtx_trace")
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield log_dir
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region in traces."""
-    from torch.profiler import record_function
-
-    with record_function(name):
-        yield

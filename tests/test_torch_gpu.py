@@ -583,3 +583,52 @@ def test_mesh_kernel_shapes_match_plain(cuda, monkeypatch, where):
             both = (got[3] > 0.5) & (ref[3] > 0.5)
             for i in range(4, 8):
                 assert (got[i] - ref[i]).abs()[both].max().item() < 5e-2
+
+
+def test_program_spans_have_no_device_copy(cuda):
+    """A program span (utils/profiling.py) is an operator range on the
+    card too: the profiler makes no device-side event of it, so a harness
+    that counts every device-side event as work counts none of it; and
+    the device work launched inside it, a plain op or a kernel of csrc/,
+    is found by its launch (tools/torch_frame_profile.py)."""
+    import importlib.util
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from moonrtx_tpu_torch.utils import profiling
+
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "torch_frame_profile.py"
+    spec = importlib.util.spec_from_file_location("torch_frame_profile", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    hs = 1.0 + 0.01 * torch.rand(384, 2048, device=cuda)
+    st = torch.rand(384, 1, device=cuda)
+    ct = torch.rand(384, 1, device=cuda)
+    shadow_prefix.shadow_factor(hs, st, ct, 0.0046, C.MOON_RADIUS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with profiling.span("test.outer"):
+            y = hs @ hs.T
+            with profiling.span("test.inner"):
+                shadow_prefix.shadow_factor(hs, st, ct, 0.0046,
+                                            C.MOON_RADIUS)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [e for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert on_card and y.shape == (384, 384)
+    assert not any(e.name().startswith(profiling.PREFIX) for e in on_card)
+    assert not any(e.is_user_annotation() for e in events
+                   if e.name().startswith(profiling.PREFIX))
+    spans, device, window = tool.read_events(prof)
+    assert sorted(n for *_, n in spans) == ["test.inner", "test.outer"]
+    assert all(t is not None for *_, t in device), [
+        n for *_, n, t in device if t is None]
+    rows = tool.span_table(spans, device, window)["rows"]
+    inner = sum(e - s for s, e, n, _ in device if "shadow" in n)
+    assert inner > 0
+    assert rows["test.inner"]["device_us"] == pytest.approx(inner)
+    assert rows["test.outer"]["device_us"] > rows["test.inner"]["device_us"]
