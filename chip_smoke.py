@@ -141,6 +141,11 @@ KERNELS = {
         source="moonrtx_tpu_torch/csrc/march_shade.cu",
         kernel=("march_kernel",),
         replaces="moonrtx_tpu/ops/pallas_march.py:633"),
+    # no pallas_call: the JAX package's burst is a jitted fori_loop
+    "march_burst": dict(
+        source="moonrtx_tpu_torch/csrc/march_shade.cu",
+        kernel=("burst_kernel",),
+        replaces="moonrtx_tpu/engine/blocked.py:940"),
     "shadow_factor": dict(
         source="moonrtx_tpu_torch/csrc/shadow_prefix.cu",
         kernel=("shadow_chunk_max_kernel", "shadow_factor_kernel"),
@@ -152,8 +157,8 @@ KERNELS = {
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
-    "pallas": ("extract_group_windows", "march_shade", "shadow_factor",
-               "resample_group_windows"),
+    "pallas": ("extract_group_windows", "march_shade", "march_burst",
+               "shadow_factor", "resample_group_windows"),
     "blocked": ("extract_level_windows",),
     # the interactive session: time steps and drags on the march path (K1
     # shadow windows, K3/K4 scan, K4 bounce refresh, K2), time steps on
@@ -183,12 +188,13 @@ MESH_DEVICES = 4
 # (heights; the bounce map's albedo at half resolution) and K3 once; K1
 # three times per strip (heights, albedo, shadow|bounce; banded, the first
 # two are each device's band-local extraction for the whole frame); K2
-# once per sample and strip; no K5
+# once per sample and strip (the strips' own burst loop, no burst
+# kernel); no K5
 MESH_COLD_LAUNCHES = {"resample_group_windows": 2 * MESH_DEVICES,
                       "shadow_factor": MESH_DEVICES,
                       "extract_group_windows": 3 * MESH_DEVICES,
                       "march_shade": SAMPLES * MESH_DEVICES,
-                      "extract_level_windows": 0}
+                      "march_burst": 0, "extract_level_windows": 0}
 MESH_BAND_BUDGET_GB = 0.01     # 8c: small enough to band the render level
 # 8c's camera, at this share of phase 3's distance: the render level is
 # then the 5760-row level 1 of the 11520-row map, which the band plan may
@@ -339,6 +345,22 @@ def bound_of(name: str, call: dict, out) -> tuple[float, str]:
     elif name == "shadow_factor":
         by = nbytes(call["hs"], call["st"], call["ct"], out)
         ops = 40 * call["hs"].numel()               # scan step + atan2
+    elif name == "march_burst":
+        # rays known live from sample 0's hits: K2's 360 flops a ray and
+        # 400 a hit for each warm sample; params, chord bounds, jitters,
+        # sample 0's planes and the mean once; the windows of the strips
+        # with a hit in sample 0 once
+        hit = call["f_prev"] > 0.5
+        ns = hit.shape[0]
+        n_hit = int(hit.reshape(ns, -1).amax(dim=1).sum())
+        by = nbytes(call["params"], call["jitters"][:call["n_samples"]],
+                    call["r"], call["g"], call["b"], call["t_prev"],
+                    call["f_prev"], *out)
+        if call["h_bound"] is not None:
+            by += nbytes(call["h_bound"])
+        by += nbytes(call["scal"], call["hwin"], call["awin"],
+                     call["swin"]) * n_hit // ns
+        ops = (call["n_samples"] - 1) * 760 * int(hit.sum())
     else:  # march_shade
         act = call["active"].reshape(call["active"].shape[0], -1)
         live = act.amax(dim=1) > 0.5                # strips with a live ray
@@ -433,6 +455,11 @@ def compare(name: str, call: dict, got, ref) -> list:
     elif name == "shadow_factor":
         err = float((got - ref).abs().max())
         tol = 1e-4                                  # atan2 polynomial
+    elif name == "march_burst":
+        # the mean of K2's samples, whose rgb is within 2.6e-5 of its plain
+        # version's on this map (PERF.md)
+        err = max(float((got[i] - ref[i]).abs().max()) for i in range(3))
+        tol = 1e-4
     else:
         hit_agree = float((got[3] == ref[3]).float().mean())
         if hit_agree < 0.999:
@@ -1364,9 +1391,10 @@ def main(argv=None) -> int:
     for name in PATH_KERNELS["pallas"]:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the march path")
-    if counts["march_shade"] != SAMPLES:
-        fail(f"march_shade launched {counts['march_shade']} times, "
-             f"expected {SAMPLES}")
+    if counts["march_shade"] != 1 or counts["march_burst"] != 1:
+        fail(f"march_shade launched {counts['march_shade']} and march_burst "
+             f"{counts['march_burst']} times, expected 1 each (sample 0, "
+             f"then samples 1-{SAMPLES - 1} in one burst)")
     accum = scene._accum
     if not bool(torch.isfinite(accum).all()):
         fail("the frame has non-finite values")
@@ -1486,23 +1514,13 @@ def main(argv=None) -> int:
              "extract_level_windows": extract.extract_level_windows_plain,
              "resample_group_windows": extract.resample_group_windows_plain,
              "shadow_factor": shadow_prefix.shadow_factor_plain,
-             "march_shade": march_shade.march_shade_plain}
+             "march_shade": march_shade.march_shade_plain,
+             "march_burst": march_shade.march_burst_plain}
     wrapper = kernels.wrappers()
-    # launches to replay: every distinct call of K1/K3/K4; the march's
-    # cold sample and first warm sample stand for its 1 + (n-1) launches
+    # launches to replay: every call of the frame (K2 once, for sample 0)
     picked: dict = {name: [] for name in KERNELS}
-    seen_warm = seen_cold = False
     for name, call in calls:
-        if name == "march_shade":
-            warm = call["t_prev"] is not None
-            if (warm and seen_warm) or (not warm and seen_cold):
-                continue
-            seen_warm |= warm
-            seen_cold |= not warm
-            weight = SAMPLES - 1 if warm else 1
-        else:
-            weight = 1
-        picked[name].append((call, weight))
+        picked[name].append(call)
     report = []
     per_call = {}   # name -> device ms of all its replayed launches
     for name, items in picked.items():
@@ -1512,7 +1530,7 @@ def main(argv=None) -> int:
         max_err = 0.0   # the main output's largest error over the launches
         bound_ops = 0.0
         passes = dict.fromkeys(KERNELS[name]["kernel"], 0.0)
-        for call, weight in items:
+        for call in items:
             got = wrapper[name](**call)
             ref = plain[name](**call)
             torch.cuda.synchronize()
@@ -1526,7 +1544,7 @@ def main(argv=None) -> int:
             k_ms, by_pass = device_ms(lambda: wrapper[name](**call),
                                       KERNELS[name]["kernel"], 30)
             for kernel, ms in by_pass.items():
-                passes[kernel] += weight * ms
+                passes[kernel] += ms
             p_ms = cuda_ms(lambda: plain[name](**call), 2)
             if name == "resample_group_windows":
                 # the bound counts a texel once, but windows overlap and
@@ -1550,17 +1568,17 @@ def main(argv=None) -> int:
                       f"{tuple(got.shape)}: {k_ms:.4f} ms, bound {b_ms:.4f} "
                       f"ms ({b_ms / k_ms:.0%} of it reached), plain "
                       f"{p_ms:.3f} ms", flush=True)
-            tot["ms"] += weight * k_ms
-            tot["plain_ms"] += weight * p_ms
-            tot["bound_ms"] += weight * b_ms
-            bound_ops += weight * (b_ms if b_by == "operations" else 0.0)
+            tot["ms"] += k_ms
+            tot["plain_ms"] += p_ms
+            tot["bound_ms"] += b_ms
+            bound_ops += b_ms if b_by == "operations" else 0.0
             lib = library_call(name, call)
             if lib is None:
                 has_lib = False
             else:
-                tot["lib"] += weight * cuda_ms(lib, 20)
+                tot["lib"] += cuda_ms(lib, 20)
             del got, ref
-        n = sum(w for _, w in items)
+        n = len(items)
         entry = dict(
             name=name, route="cuda", source=KERNELS[name]["source"],
             replaces=KERNELS[name]["replaces"], launches=counts[name],

@@ -21,7 +21,8 @@
 // rays of the strip, the same decision as the TPU kernel's strip sum, so
 // warm samples pick the same brackets. Strips with no active ray, and
 // strips where no ray found a hit, write zeros and stop (bit-identical:
-// every output is masked by the hit flag).
+// every output is masked by the hit flag). The burst kernel at the end of
+// the file runs the warm samples of an accumulation on the same device code.
 #include "common.cuh"
 #include "atan2_poly.cuh"
 
@@ -150,42 +151,43 @@ __device__ __forceinline__ float field(const Ray& R, float t) {
 
 __device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
 
-__global__ void __launch_bounds__(NRAY, 1) march_kernel(const MarchArgs a) {
-  __shared__ __nv_bfloat16 hw[G * WH * WW];
-  __shared__ float P[NPAR];
-  const int s = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int g = tid / B;
-  const long long ray = (long long)s * NRAY + tid;
-  if (tid < NPAR) P[tid] = a.params[tid * NRAY];
-  const float activef = a.act[ray] > 0.5f ? 1.0f : 0.0f;
-  // strips with no active ray: every output is masked to zero
-  if (!__syncthreads_or(activef > 0.0f)) {
-    for (int i = 0; i < 8; ++i) a.out[i][ray] = 0.0f;
-    return;
-  }
-  const float* hsrc = a.hwin + (long long)s * G * WH * WW;
+// The strip's eight height windows, as bf16, into shared memory.
+__device__ __forceinline__ void stage_heights(const float* hwin, int s,
+                                              int tid, __nv_bfloat16* hw) {
+  const float* hsrc = hwin + (long long)s * G * WH * WW;
   for (int e = tid; e < G * WH * WW; e += NRAY)
     hw[e] = __float2bfloat16_rn(hsrc[e]);
-  __syncthreads();
+}
 
-  const float* sc = a.scal + (long long)s * NSCAL * NRAY + tid;
+// A ray's fixed part: the eye, its block's window origins and level.
+__device__ __forceinline__ Ray strip_ray(const MarchArgs& a, const float* P,
+                                         const float* sc,
+                                         const __nv_bfloat16* hw) {
   Ray R;
   R.obx = P[0]; R.oby = P[1]; R.obz = P[2];
-  R.dbx = a.dbx[ray]; R.dby = a.dby[ray]; R.dbz = a.dbz[ray];
   R.r0 = sc[0 * NRAY]; R.c0 = sc[1 * NRAY]; R.hmean = sc[2 * NRAY];
   R.q = sc[3 * NRAY];
   R.h180 = a.h_over_180; R.w360 = a.w_over_360; R.w_f = a.w_f;
-  R.hw = hw + g * WH * WW;
-  const float t_enter = a.t0[ray], t_end = a.t1[ray];
-  const float span = t_end - t_enter;
+  R.hw = hw;
+  return R;
+}
 
-  float foundf = 0.0f, t_lo = t_enter, t_hi = t_end, f_lo = 1.0f, f_hi = -1.0f;
+struct Bracket {
+  float found, t_lo, t_hi, f_lo, f_hi;
+};
+
+// The bracket of the surface on [t_enter, t_end]. Warm: t_prev +- one
+// coarse step, kept only if EVERY active ray of the strip brackets its
+// previous hit; otherwise (and cold) the coarse march. Every thread of
+// the block calls it (the vote is a barrier).
+__device__ __forceinline__ Bracket bracket(const MarchArgs& a, const Ray& R,
+                                           float t_enter, float t_end,
+                                           float activef, bool warm,
+                                           float tp, float fp) {
+  const float span = t_end - t_enter;
+  Bracket b = {0.0f, t_enter, t_end, 1.0f, -1.0f};
   bool cold = true;
-  if (a.warm) {
-    // warm start: bracket t_prev +- one coarse step; the strip skips the
-    // coarse march only if EVERY active ray brackets its previous hit
-    const float tp = a.tprev[ray], fp = a.fprev[ray];
+  if (warm) {
     const float delta = span * a.inv_n_coarse;
     const float ta = fmaxf(tp - delta, t_enter);
     const float tb = fminf(tp + delta, t_end);
@@ -194,7 +196,7 @@ __global__ void __launch_bounds__(NRAY, 1) march_kernel(const MarchArgs a) {
                        * fp;
     if (!__syncthreads_or(activef * (1.0f - good) != 0.0f)) {
       cold = false;
-      foundf = activef; t_lo = ta; t_hi = tb; f_lo = fa; f_hi = fb;
+      b = {activef, ta, tb, fa, fb};
     }
   }
   if (cold) {
@@ -202,38 +204,42 @@ __global__ void __launch_bounds__(NRAY, 1) march_kernel(const MarchArgs a) {
     for (int k = 0; k <= a.n_coarse; ++k) {
       const float t_k = t_enter + span * a.frac[k];
       const float f_k = field(R, t_k);
-      const float newly = (1.0f - foundf) * (f_k < 0.0f ? 1.0f : 0.0f)
+      const float newly = (1.0f - b.found) * (f_k < 0.0f ? 1.0f : 0.0f)
                           * activef;
       const float t_pk = t_enter + span * a.frac_prev[k];
       if (newly > 0.5f) {
-        t_lo = t_pk; t_hi = t_k; f_lo = f_back; f_hi = f_k;
+        b.t_lo = t_pk; b.t_hi = t_k; b.f_lo = f_back; b.f_hi = f_k;
       }
-      foundf = fmaxf(foundf, newly);
+      b.found = fmaxf(b.found, newly);
       f_back = f_k;
     }
   }
-  const bool found = foundf > 0.5f;
-  // strips where no ray found the surface: every output is zero
-  if (!__syncthreads_or(found)) {
-    for (int i = 0; i < 8; ++i) a.out[i][ray] = 0.0f;
-    return;
-  }
+  return b;
+}
 
-  // Illinois false position; the warm variant runs one more iteration
-  const int n_iter = a.n_bisect + (a.warm ? 1 : 0);
+// Illinois false position on the bracket; the hit distance.
+__device__ __forceinline__ float refine(const Ray& R, int n_iter, Bracket b) {
   for (int it = 0; it < n_iter; ++it) {
-    const float denom = fminf(f_hi - f_lo, -1e-30f);
-    const float t_m = clipf(t_lo - f_lo * (t_hi - t_lo) / denom, t_lo, t_hi);
+    const float denom = fminf(b.f_hi - b.f_lo, -1e-30f);
+    const float t_m = clipf(b.t_lo - b.f_lo * (b.t_hi - b.t_lo) / denom,
+                            b.t_lo, b.t_hi);
     const float f_m = field(R, t_m);
     if (f_m > 0.0f) {
-      t_lo = t_m; f_lo = f_m; f_hi = 0.5f * f_hi;
+      b.t_lo = t_m; b.f_lo = f_m; b.f_hi = 0.5f * b.f_hi;
     } else {
-      t_hi = t_m; f_hi = f_m; f_lo = 0.5f * f_lo;
+      b.t_hi = t_m; b.f_hi = f_m; b.f_lo = 0.5f * b.f_lo;
     }
   }
-  const float den2 = fminf(f_hi - f_lo, -1e-30f);
-  const float t_hit = clipf(t_lo - f_lo * (t_hi - t_lo) / den2, t_lo, t_hi);
+  const float den2 = fminf(b.f_hi - b.f_lo, -1e-30f);
+  return clipf(b.t_lo - b.f_lo * (b.t_hi - b.t_lo) / den2, b.t_lo, b.t_hi);
+}
 
+// Normal, albedo, shadow and bounce, lighting, eclipse and earthshine at
+// the hit: the 8 outputs (r, g, b, hit, t_hit, px, py, pz), masked by hitf.
+__device__ __forceinline__ void shade(const MarchArgs& a, const float* P,
+                                      const Ray& R, const float* sc, int s,
+                                      int g, float t_hit, bool hitf,
+                                      float* o) {
   const float px = R.obx + t_hit * R.dbx;
   const float py = R.oby + t_hit * R.dby;
   const float pz = R.obz + t_hit * R.dbz;
@@ -347,7 +353,6 @@ __global__ void __launch_bounds__(NRAY, 1) march_kernel(const MarchArgs a) {
   const float mu_e = fmaxf(-(nX * R.dbx + nY * R.dby + nZ * R.dbz), 0.02f);
   const float ls = 2.0f * ndotl / (ndotl + mu_e + 1e-6f);
   ndotl = lblend * ls + (1.0f - lblend) * ndotl;
-  const bool hitf = found && activef > 0.0f;
   const float irr = P[6];
   const float lum = hitf ? irr * (ndotl * shadow + bounce) : 0.0f;
 
@@ -392,14 +397,50 @@ __global__ void __launch_bounds__(NRAY, 1) march_kernel(const MarchArgs a) {
     tint1 = fvis + cov * 0.009f;
     tint2 = fvis + cov * 0.003f;
   }
-  a.out[0][ray] = alb_r * (lum * tint0 + lum_es);
-  a.out[1][ray] = alb_g * (lum * tint1 + lum_es);
-  a.out[2][ray] = alb_b * (lum * tint2 + lum_es);
-  a.out[3][ray] = hitf ? 1.0f : 0.0f;
-  a.out[4][ray] = hitf ? t_hit : 0.0f;
-  a.out[5][ray] = hitf ? px : 0.0f;
-  a.out[6][ray] = hitf ? py : 0.0f;
-  a.out[7][ray] = hitf ? pz : 0.0f;
+  o[0] = alb_r * (lum * tint0 + lum_es);
+  o[1] = alb_g * (lum * tint1 + lum_es);
+  o[2] = alb_b * (lum * tint2 + lum_es);
+  o[3] = hitf ? 1.0f : 0.0f;
+  o[4] = hitf ? t_hit : 0.0f;
+  o[5] = hitf ? px : 0.0f;
+  o[6] = hitf ? py : 0.0f;
+  o[7] = hitf ? pz : 0.0f;
+}
+
+__global__ void __launch_bounds__(NRAY, 1) march_kernel(const MarchArgs a) {
+  __shared__ __nv_bfloat16 hw[G * WH * WW];
+  __shared__ float P[NPAR];
+  const int s = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int g = tid / B;
+  const long long ray = (long long)s * NRAY + tid;
+  if (tid < NPAR) P[tid] = a.params[tid * NRAY];
+  const float activef = a.act[ray] > 0.5f ? 1.0f : 0.0f;
+  // strips with no active ray: every output is masked to zero
+  if (!__syncthreads_or(activef > 0.0f)) {
+    for (int i = 0; i < 8; ++i) a.out[i][ray] = 0.0f;
+    return;
+  }
+  stage_heights(a.hwin, s, tid, hw);
+  __syncthreads();
+
+  const float* sc = a.scal + (long long)s * NSCAL * NRAY + tid;
+  Ray R = strip_ray(a, P, sc, hw + g * WH * WW);
+  R.dbx = a.dbx[ray]; R.dby = a.dby[ray]; R.dbz = a.dbz[ray];
+  const Bracket b = bracket(a, R, a.t0[ray], a.t1[ray], activef, a.warm,
+                            a.warm ? a.tprev[ray] : 0.0f,
+                            a.warm ? a.fprev[ray] : 0.0f);
+  const bool found = b.found > 0.5f;
+  // strips where no ray found the surface: every output is zero
+  if (!__syncthreads_or(found)) {
+    for (int i = 0; i < 8; ++i) a.out[i][ray] = 0.0f;
+    return;
+  }
+  // the warm variant runs one more iteration
+  const float t_hit = refine(R, a.n_bisect + (a.warm ? 1 : 0), b);
+  float o[8];
+  shade(a, P, R, sc, s, g, t_hit, found && activef > 0.0f, o);
+  for (int i = 0; i < 8; ++i) a.out[i][ray] = o[i];
 }
 
 MRTX_EXPORT int mrtx_march_shade(const MarchArgs* a, cudaStream_t stream) {
@@ -407,6 +448,144 @@ MRTX_EXPORT int mrtx_march_shade(const MarchArgs* a, cudaStream_t stream) {
     return (int)cudaErrorInvalidValue;
   if (a->ns == 0) return 0;
   march_kernel<<<a->ns, NRAY, 0, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// ---- the burst: samples 1..n-1 of an accumulation in one launch ---------
+//
+// Replaces no TPU kernel: the TPU runs this loop as one jitted fori_loop
+// around march_shade_pallas (moonrtx_tpu/engine/blocked.py, the burst),
+// which XLA fuses; run op by op in plain torch, the loop is tens of
+// launches a sample around K2. Each block loops over the warm samples of
+// its strip: the jittered ray in block layout
+// (engine/blocked.py::_block_ray_dirs, then the rotation into the body
+// frame), the outer and inner shell chords clipped against the block's
+// h_bound (block_rays), K2's warm march and shade, and the running mean ar
+// + (r - ar) / k, each in the order of operations of the plain version on
+// the card, where a division by a host number is a product with its float
+// reciprocal. The previous sample's hit distance and mask stay in
+// registers; the height windows are staged once a launch, at the first
+// sample with an active ray. Inactive rays keep their own chord (block_rays
+// collapses it to the block's mean chord, which only tightens the pose
+// program's windows): every output of an inactive ray is masked, and it
+// never votes. Bound: the chain of field evaluations, ~20 a ray and sample,
+// as K2's.
+
+#define NCAM 19   // forward | right | up | tan_half_fov | rotation (3x3)
+
+// torch.sum over three elements on the card: two threads, the first adds
+// elements 0 and 2, then the second's element 1
+__device__ __forceinline__ float sum3(float x0, float x1, float x2) {
+  return (x0 + x2) + x1;
+}
+
+struct BurstArgs {
+  MarchArgs m;            // params, scal, windows, march settings; the ray
+                          // planes are unused, tprev/fprev are sample 0's
+  const float* jit;       // (rows, 2) jitters, sample i at row i
+  const float* hbound;    // (NS * G,) chord bound of each block, or null
+  const float* cam;       // NCAM floats
+  const float* rgb0[3];   // sample 0's colour
+  float* mean[3];         // the mean over all n_samples
+  float inv_fh, inv_width, w_over_fh, r2_outer, r2_inner;  // as floats
+  int wbk, n_samples;     // blocks per image row; samples (>= 2)
+};
+
+__global__ void __launch_bounds__(NRAY, 1) burst_kernel(const BurstArgs b) {
+  const MarchArgs& a = b.m;
+  __shared__ __nv_bfloat16 hw[G * WH * WW];
+  __shared__ float P[NPAR];
+  __shared__ float cam[NCAM];
+  const int s = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int g = tid / B, lane = tid % B;
+  const long long ray = (long long)s * NRAY + tid;
+  if (tid < NPAR) P[tid] = a.params[tid * NRAY];
+  if (tid < NCAM) cam[tid] = b.cam[tid];
+  __syncthreads();
+
+  const float* sc = a.scal + (long long)s * NSCAL * NRAY + tid;
+  Ray R = strip_ray(a, P, sc, hw + g * WH * WW);
+  // the ray's pixel (8x16-pixel blocks in block-row-major order)
+  const int blk = s * G + g;
+  const float ys = (float)((blk / b.wbk) * 8 + lane / 16);
+  const float xs = (float)((blk % b.wbk) * 16 + lane % 16);
+  const float oo = sum3(R.obx * R.obx, R.oby * R.oby, R.obz * R.obz);
+  float cc = 0.0f;
+  if (b.hbound) {
+    const float r_bound = kMoonR * fminf(b.hbound[blk], 1.0f);
+    cc = oo - r_bound * r_bound;
+  }
+  float ar = b.rgb0[0][ray], ag = b.rgb0[1][ray], ab = b.rgb0[2][ray];
+  float tp = a.tprev[ray], fp = a.fprev[ray];
+  bool staged = false;
+  for (int i = 1; i < b.n_samples; ++i) {
+    // jittered direction, normalised, then transpose(rotation) times it
+    const float v = 1.0f - 2.0f * ((ys + 0.5f) + b.jit[2 * i]) * b.inv_fh;
+    const float u = (2.0f * ((xs + 0.5f) + b.jit[2 * i + 1]) * b.inv_width
+                     - 1.0f) * b.w_over_fh;
+    float d0 = cam[0] + cam[9] * (u * cam[3] + v * cam[6]);
+    float d1 = cam[1] + cam[9] * (u * cam[4] + v * cam[7]);
+    float d2 = cam[2] + cam[9] * (u * cam[5] + v * cam[8]);
+    const float nrm = sqrtf(fmaxf(sum3(d0 * d0, d1 * d1, d2 * d2), 1e-20f));
+    d0 = d0 / nrm; d1 = d1 / nrm; d2 = d2 / nrm;
+    const float* M = cam + 10;
+    R.dbx = d0 * M[0] + d1 * M[3] + d2 * M[6];
+    R.dby = d0 * M[1] + d1 * M[4] + d2 * M[7];
+    R.dbz = d0 * M[2] + d1 * M[5] + d2 * M[8];
+    // chords through the outer shell and to the inner sphere
+    const float bb = sum3(R.obx * R.dbx, R.oby * R.dby, R.obz * R.dbz);
+    const float disc = bb * bb - (oo - b.r2_outer);
+    bool hit_out = disc > 0.0f;
+    const float so = sqrtf(fmaxf(disc, 0.0f));
+    float t_enter = fmaxf(-bb - so, 0.0f);
+    const float disc_in = bb * bb - (oo - b.r2_inner);
+    const float t_in = -bb - sqrtf(fmaxf(disc_in, 0.0f));
+    float t_end = (disc_in > 0.0f && t_in > 0.0f) ? t_in : -bb + so;
+    if (b.hbound) {
+      // clipped to the segment inside the block's local-max sphere
+      const float dc = bb * bb - cc;
+      const bool crosses = dc > 0.0f;
+      const float sq = sqrtf(fmaxf(dc, 0.0f));
+      t_enter = fmaxf(t_enter, crosses ? -bb - sq : t_enter);
+      t_end = fminf(t_end, crosses ? -bb + sq : t_end);
+      hit_out = hit_out && crosses && t_end > t_enter;
+    }
+    const float activef = hit_out ? 1.0f : 0.0f;
+
+    float o[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    // as K2: a strip with no active ray, or where no ray found the
+    // surface, gives zeros (every vote is the whole block's)
+    if (__syncthreads_or(activef > 0.0f)) {
+      if (!staged) {
+        stage_heights(a.hwin, s, tid, hw);
+        __syncthreads();
+        staged = true;
+      }
+      const Bracket br = bracket(a, R, t_enter, t_end, activef, true, tp, fp);
+      const bool found = br.found > 0.5f;
+      if (__syncthreads_or(found)) {
+        const float t_hit = refine(R, a.n_bisect + 1, br);
+        shade(a, P, R, sc, s, g, t_hit, found && activef > 0.0f, o);
+      }
+    }
+    const float inv_k = 1.0f / (float)(i + 1);
+    ar = ar + (o[0] - ar) * inv_k;
+    ag = ag + (o[1] - ag) * inv_k;
+    ab = ab + (o[2] - ab) * inv_k;
+    tp = o[4];
+    fp = o[3];
+  }
+  b.mean[0][ray] = ar;
+  b.mean[1][ray] = ag;
+  b.mean[2][ray] = ab;
+}
+
+MRTX_EXPORT int mrtx_march_burst(const BurstArgs* b, cudaStream_t stream) {
+  if (b->m.n_coarse < 1 || b->m.n_coarse >= MAX_COARSE || b->n_samples < 2)
+    return (int)cudaErrorInvalidValue;
+  if (b->m.ns == 0) return 0;
+  burst_kernel<<<b->m.ns, NRAY, 0, stream>>>(*b);
   return (int)cudaGetLastError();
 }
 

@@ -760,38 +760,35 @@ def _burst_core(packed: PackedWindows, smap_params, background, maxmap,
                 width: int, h: int, w: int, h_min: float, ah: int, aw: int,
                 n_samples: int, n_coarse: int, use_shadow: bool,
                 hbound=None):
-    """N jittered accumulation samples: per sample, jittered rays -> the
-    march kernel -> running mean; samples >= 2 warm-start from the
-    previous sample's hits. Returns (rgb_mean, hitbuf of sample 0)."""
+    """N jittered accumulation samples: sample 0's rays (with the image-
+    order directions the sun-disk pass needs) through the march kernel,
+    then samples 1..N-1, warm-started from the previous sample's hits,
+    with their rays and the running mean in one burst kernel
+    (ops.march_shade.march_burst). Returns (rgb_mean, hitbuf of sample
+    0)."""
     ob = mat3t_apply(fp.rotation, basis.eye)
     params = _kernel_params(ob, fp, smap_params, use_shadow,
                             2.0 * basis.tan_half_fov / height, ah, aw)
     geom0 = block_rays(basis, fp.rotation, jitters[0], height, width,
                        h_min, maxmap=maxmap, h_bound=hbound)
     ns = geom0.db.shape[0] // GROUP
-    h_bound = geom0.h_bound
-
-    def run_kernel(geom, t_prev=None, f_prev=None):
-        dbx, dby, dbz = (geom.db[..., i].reshape(ns, GROUP, BLOCK)
-                         for i in range(3))
-        t0 = geom.t_enter.reshape(ns, GROUP, BLOCK)
-        t1 = geom.t_end.reshape(ns, GROUP, BLOCK)
-        act = geom.hit_outer.to(torch.float32).reshape(ns, GROUP, BLOCK)
-        return mk.march_shade(
-            params, dbx, dby, dbz, t0, t1, act, packed.scal, packed.hwin,
-            packed.awin, packed.swin, h=h, w=w, n_coarse=n_coarse,
-            use_shadow=use_shadow, use_earth=fp.earth is not None,
-            t_prev=t_prev, f_prev=f_prev)
-
-    r0, g0, b0, hit0, t0_, px0, py0, pz0 = run_kernel(geom0)
-    ar, ag, ab, tp, fpv = r0, g0, b0, t0_, hit0
-    for i in range(1, n_samples):
-        geom = block_rays(basis, fp.rotation, jitters[i], height, width,
-                          h_min, h_bound=h_bound, image_dirs=False)
-        r, g, b, hitf, t_hit, *_ = run_kernel(geom, t_prev=tp, f_prev=fpv)
-        k = i + 1.0
-        ar, ag, ab = ar + (r - ar) / k, ag + (g - ag) / k, ab + (b - ab) / k
-        tp, fpv = t_hit, hitf
+    dbx, dby, dbz = (geom0.db[..., i].reshape(ns, GROUP, BLOCK)
+                     for i in range(3))
+    use_earth = fp.earth is not None
+    r0, g0, b0, hit0, t0_, px0, py0, pz0 = mk.march_shade(
+        params, dbx, dby, dbz, geom0.t_enter.reshape(ns, GROUP, BLOCK),
+        geom0.t_end.reshape(ns, GROUP, BLOCK),
+        geom0.hit_outer.to(torch.float32).reshape(ns, GROUP, BLOCK),
+        packed.scal, packed.hwin, packed.awin, packed.swin, h=h, w=w,
+        n_coarse=n_coarse, use_shadow=use_shadow, use_earth=use_earth)
+    ar, ag, ab = r0, g0, b0
+    if n_samples > 1:
+        ar, ag, ab = mk.march_burst(
+            params, basis, fp.rotation, jitters, geom0.h_bound, r0, g0, b0,
+            t0_, hit0, packed.scal, packed.hwin, packed.awin, packed.swin,
+            h=h, w=w, height=height, width=width, h_min=h_min,
+            n_samples=n_samples, n_coarse=n_coarse, use_shadow=use_shadow,
+            use_earth=use_earth)
 
     return composite_kernel_outputs(
         ar, ag, ab, hit0, t0_, px0, py0, pz0, height, width,

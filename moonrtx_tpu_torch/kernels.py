@@ -156,6 +156,7 @@ def wrappers() -> dict:
         "resample_group_windows": extract.resample_group_windows,
         "shadow_factor": shadow_prefix.shadow_factor,
         "march_shade": march_shade.march_shade,
+        "march_burst": march_shade.march_burst,
     }
 
 

@@ -21,10 +21,12 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from moonrtx_tpu_torch import constants as C
 from moonrtx_tpu_torch import kernels
+from moonrtx_tpu_torch.utils import profiling
 
 G = 8                # blocks per strip (engine.blocked.GROUP)
 B = 128              # rays per block (engine.blocked.BLOCK)
@@ -408,6 +410,45 @@ class _MarchArgs(ctypes.Structure):
     ]
 
 
+def _check(name: str, shapes, dev) -> None:
+    for t, shape, dtype in shapes:
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
+            raise ValueError(f"{name}: expected {shape} {dtype} on {dev}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _strip_inputs(params, scal, hwin, awin, swin, ns: int):
+    """(tensor, shape, dtype) of the inputs K2 and the burst share."""
+    return [(params, (N_PARAMS, G, B), torch.float32),
+            (scal, (ns, N_SCAL, G, B), torch.float32),
+            (hwin, (ns, G * WH, WW), torch.float32),
+            (awin, (ns, G * AH, 3 * AW), torch.float32),
+            (swin, (ns, G * SH, 2 * SW), torch.bfloat16)]
+
+
+def _march_args(strip, h: int, w: int, ns: int, n_coarse: int,
+                n_bisect: int, use_shadow: bool, use_earth: bool,
+                warm: bool) -> _MarchArgs:
+    """K2's argument struct without its ray planes; ``strip``: the
+    contiguous (params, scal, hwin, awin, swin)."""
+    params, scal, hwin, awin, swin = strip
+    a = _MarchArgs()
+    a.params, a.scal = params.data_ptr(), scal.data_ptr()
+    a.hwin, a.awin, a.swin = hwin.data_ptr(), awin.data_ptr(), swin.data_ptr()
+    for k in range(n_coarse + 1):
+        frac = (k + 0.5) / n_coarse
+        a.frac[k] = frac
+        a.frac_prev[k] = max(frac - 1.0 / n_coarse, 0.0)
+    a.h_f, a.w_f = float(h), float(w)
+    a.h_over_180, a.w_over_360 = h / 180.0, w / 360.0
+    a.h_over_pi, a.pi_over_h = h / math.pi, math.pi / h
+    a.inv_n_coarse = 1.0 / n_coarse
+    a.ns, a.n_coarse, a.n_bisect = ns, n_coarse, n_bisect
+    a.use_shadow, a.use_earth, a.warm = int(use_shadow), int(use_earth), \
+        int(warm)
+    return a
+
+
 def march_shade(params, dbx, dby, dbz, t_enter, t_end, active, scal, hwin,
                 awin, swin, h: int, w: int, n_coarse: int = 12,
                 n_bisect: int = 3, use_shadow: bool = True,
@@ -434,19 +475,11 @@ def march_shade(params, dbx, dby, dbz, t_enter, t_end, active, scal, hwin,
         raise ValueError(f"n_coarse must be in [1, {MAX_COARSE})")
     warm = t_prev is not None
     dev = dbx.device
-    shapes = [(params, (N_PARAMS, G, B), torch.float32),
-              (scal, (ns, N_SCAL, G, B), torch.float32),
-              (hwin, (ns, G * WH, WW), torch.float32),
-              (awin, (ns, G * AH, 3 * AW), torch.float32),
-              (swin, (ns, G * SH, 2 * SW), torch.bfloat16)]
+    shapes = _strip_inputs(params, scal, hwin, awin, swin, ns)
     rays = [dbx, dby, dbz, t_enter, t_end, active] + (
         [t_prev, f_prev] if warm else [])
     shapes += [(t, (ns, G, B), torch.float32) for t in rays]
-    for t, shape, dtype in shapes:
-        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
-            raise ValueError(f"march_shade: expected {shape} {dtype} on "
-                             f"{dev}, got {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}")
+    _check("march_shade", shapes, dev)
     if dev.type != "cuda":
         return march_shade_plain(
             params, dbx, dby, dbz, t_enter, t_end, active, scal, hwin, awin,
@@ -454,30 +487,17 @@ def march_shade(params, dbx, dby, dbz, t_enter, t_end, active, scal, hwin,
             use_shadow=use_shadow, use_earth=use_earth, t_prev=t_prev,
             f_prev=f_prev)
     ins = [t.contiguous() for t, _, _ in shapes]
-    params, scal, hwin, awin, swin = ins[:5]
     rays = ins[5:]
     outs = [torch.empty((ns, G, B), dtype=torch.float32, device=dev)
             for _ in range(8)]
-    a = _MarchArgs()
-    a.params, a.scal = params.data_ptr(), scal.data_ptr()
-    a.hwin, a.awin, a.swin = hwin.data_ptr(), awin.data_ptr(), swin.data_ptr()
+    a = _march_args(ins[:5], h, w, ns, n_coarse, n_bisect, use_shadow,
+                    use_earth, warm)
     (a.dbx, a.dby, a.dbz, a.t0, a.t1, a.act) = [t.data_ptr()
                                                 for t in rays[:6]]
     if warm:
         a.tprev, a.fprev = rays[6].data_ptr(), rays[7].data_ptr()
     for i, o in enumerate(outs):
         a.out[i] = o.data_ptr()
-    for k in range(n_coarse + 1):
-        frac = (k + 0.5) / n_coarse
-        a.frac[k] = frac
-        a.frac_prev[k] = max(frac - 1.0 / n_coarse, 0.0)
-    a.h_f, a.w_f = float(h), float(w)
-    a.h_over_180, a.w_over_360 = h / 180.0, w / 360.0
-    a.h_over_pi, a.pi_over_h = h / math.pi, math.pi / h
-    a.inv_n_coarse = 1.0 / n_coarse
-    a.ns, a.n_coarse, a.n_bisect = ns, n_coarse, n_bisect
-    a.use_shadow, a.use_earth, a.warm = int(use_shadow), int(use_earth), \
-        int(warm)
     with torch.cuda.device(dev):
         rc = kernels.entry("march_shade", "mrtx_march_shade", _MarchArgs)(
             ctypes.byref(a), kernels.stream_of(outs[0]))
@@ -487,3 +507,136 @@ def march_shade(params, dbx, dby, dbz, t_enter, t_end, active, scal, hwin,
 
 
 march_shade.launches = 0
+
+
+# ---- the burst: warm samples 1..n-1 in one launch ---------------------------
+
+N_CAM = 19    # forward | right | up | tan_half_fov | rotation (row-major)
+
+
+def march_burst_plain(params, basis, rotation, jitters, h_bound, r, g, b,
+                      t_prev, f_prev, scal, hwin, awin, swin, h: int, w: int,
+                      height: int, width: int, h_min: float, n_samples: int,
+                      n_coarse: int = 12, n_bisect: int = 3,
+                      use_shadow: bool = True, use_earth: bool = True):
+    """Plain version of march_burst: per warm sample the jittered rays
+    (engine.blocked.block_rays in block layout), march_shade_plain warm
+    from the previous sample's hits, and the running mean."""
+    # engine.blocked imports this module
+    from moonrtx_tpu_torch.engine.blocked import block_rays
+
+    ns = t_prev.shape[0]
+    ar, ag, ab, tp, fpv = r, g, b, t_prev, f_prev
+    for i in range(1, n_samples):
+        geom = block_rays(basis, rotation, jitters[i], height, width, h_min,
+                          h_bound=h_bound, image_dirs=False)
+        dbx, dby, dbz = (geom.db[..., k].reshape(ns, G, B) for k in range(3))
+        r_i, g_i, b_i, hitf, t_hit, *_ = march_shade_plain(
+            params, dbx, dby, dbz, geom.t_enter.reshape(ns, G, B),
+            geom.t_end.reshape(ns, G, B),
+            geom.hit_outer.to(torch.float32).reshape(ns, G, B), scal, hwin,
+            awin, swin, h, w, n_coarse=n_coarse, n_bisect=n_bisect,
+            use_shadow=use_shadow, use_earth=use_earth, t_prev=tp,
+            f_prev=fpv)
+        k = i + 1.0
+        ar, ag, ab = ar + (r_i - ar) / k, ag + (g_i - ag) / k, \
+            ab + (b_i - ab) / k
+        tp, fpv = t_hit, hitf
+    return ar, ag, ab
+
+
+class _BurstArgs(ctypes.Structure):
+    _fields_ = [
+        ("m", _MarchArgs), ("jit", ctypes.c_void_p),
+        ("hbound", ctypes.c_void_p), ("cam", ctypes.c_void_p),
+        ("rgb0", ctypes.c_void_p * 3), ("mean", ctypes.c_void_p * 3),
+        ("inv_fh", ctypes.c_float), ("inv_width", ctypes.c_float),
+        ("w_over_fh", ctypes.c_float), ("r2_outer", ctypes.c_float),
+        ("r2_inner", ctypes.c_float),
+        ("wbk", ctypes.c_int), ("n_samples", ctypes.c_int),
+    ]
+
+
+def march_burst(params, basis, rotation, jitters, h_bound, r, g, b, t_prev,
+                f_prev, scal, hwin, awin, swin, h: int, w: int, height: int,
+                width: int, h_min: float, n_samples: int, n_coarse: int = 12,
+                n_bisect: int = 3, use_shadow: bool = True,
+                use_earth: bool = True):
+    """Samples 1..n_samples-1 of an accumulation burst in one launch (the
+    burst kernel, csrc/march_shade.cu): each warm sample's jittered rays,
+    K2's warm march and shade, and the running mean, never leaving the
+    card's registers between samples.
+
+    params, scal, hwin, awin, swin, h, w, n_coarse, n_bisect, use_shadow,
+    use_earth: as march_shade. basis (engine.camera.CameraBasis) and
+    rotation (3, 3): the camera and body-to-scene rotation; jitters:
+    (>= n_samples, 2) f32, sample i's at row i; h_bound: (NS*G,) f32 chord
+    bound of each block, or None; height, width: the frame; h_min: the
+    inner sphere's radius in Moon radii. r, g, b, t_prev, f_prev: sample
+    0's colour, hit distance and hit mask from march_shade, (NS, G, B).
+    Returns the mean (r, g, b) over all n_samples, each (NS, G, B) f32.
+    Adds n_samples - 1 to the counter ``burst.fused_samples``.
+    """
+    call = dict(locals())
+    ns = t_prev.shape[0]
+    if not 2 <= n_samples <= jitters.shape[0]:
+        raise ValueError(f"march_burst: n_samples {n_samples} must be in "
+                         f"[2, {jitters.shape[0]}] (the jitter rows)")
+    if not 1 <= n_coarse < MAX_COARSE:
+        raise ValueError(f"n_coarse must be in [1, {MAX_COARSE})")
+    dev = t_prev.device
+    shapes = _strip_inputs(params, scal, hwin, awin, swin, ns)
+    shapes += [(t, (ns, G, B), torch.float32)
+               for t in (r, g, b, t_prev, f_prev)]
+    shapes.append((jitters, (jitters.shape[0], 2), torch.float32))
+    if h_bound is not None:
+        shapes.append((h_bound, (ns * G,), torch.float32))
+    _check("march_burst", shapes, dev)
+    if height % 8 or width % 16 or height * width != ns * G * B:
+        raise ValueError(f"march_burst: a {height}x{width} frame is not "
+                         f"{ns} strips of 8x16-pixel blocks")
+    profiling.count("burst.fused_samples", n_samples - 1)
+    if dev.type != "cuda":
+        return march_burst_plain(
+            params, basis, rotation, jitters, h_bound, r, g, b, t_prev,
+            f_prev, scal, hwin, awin, swin, h, w, height, width, h_min,
+            n_samples, n_coarse=n_coarse, n_bisect=n_bisect,
+            use_shadow=use_shadow, use_earth=use_earth)
+    ins = [t.contiguous() for t, _, _ in shapes]
+    cam = torch.cat([basis.forward, basis.right, basis.up,
+                     torch.as_tensor(basis.tan_half_fov, dtype=torch.float32,
+                                     device=dev).reshape(1),
+                     rotation.reshape(9)]).to(torch.float32).contiguous()
+    if cam.numel() != N_CAM:
+        raise ValueError(f"march_burst: the camera basis and rotation give "
+                         f"{cam.numel()} numbers, expected {N_CAM}")
+    outs = [torch.empty((ns, G, B), dtype=torch.float32, device=dev)
+            for _ in range(3)]
+    a = _BurstArgs()
+    a.m = _march_args(ins[:5], h, w, ns, n_coarse, n_bisect, use_shadow,
+                      use_earth, True)
+    rgb0, (tp, fpv) = ins[5:8], ins[8:10]
+    a.m.tprev, a.m.fprev = tp.data_ptr(), fpv.data_ptr()
+    a.jit = ins[10].data_ptr()
+    a.hbound = ins[11].data_ptr() if h_bound is not None else None
+    a.cam = cam.data_ptr()
+    for i in range(3):
+        a.rgb0[i] = rgb0[i].data_ptr()
+        a.mean[i] = outs[i].data_ptr()
+    # torch on the card divides by a host number as a product with the
+    # number's float32 reciprocal; the kernel does the same
+    a.inv_fh = np.float32(1.0) / np.float32(height)
+    a.inv_width = np.float32(1.0) / np.float32(width)
+    a.w_over_fh = width / height
+    r_in = C.MOON_RADIUS * h_min * 0.999      # block_rays' inner sphere
+    a.r2_outer, a.r2_inner = C.MOON_RADIUS * C.MOON_RADIUS, r_in * r_in
+    a.wbk, a.n_samples = width // 16, n_samples
+    with torch.cuda.device(dev):
+        rc = kernels.entry("march_shade", "mrtx_march_burst", _BurstArgs)(
+            ctypes.byref(a), kernels.stream_of(outs[0]))
+    kernels.check("march_shade", rc)
+    kernels.launched(march_burst, call)
+    return tuple(outs)
+
+
+march_burst.launches = 0

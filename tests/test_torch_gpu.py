@@ -15,7 +15,9 @@ the inputs of moonrtx_tpu_torch/hard_cases.py (extraction bit for bit,
 -0.0 included); the march (K2) agrees
 on >= 99.9% of hit flags, within 2e-2 on rgb and within 5e-2 on the hit
 distance and point where both hit (its transcendental functions are the
-card's own).
+card's own); the burst kernel (samples 1..N-1 of an accumulation in one
+launch) gives the per-sample K2 loop's mean bit for bit and is within
+1e-4 of its plain version on a 1080p view of chip_smoke.py's map.
 """
 
 from datetime import datetime, timezone
@@ -348,7 +350,8 @@ def test_scene_renders_through_the_kernels(cuda):
     counts = kernels.launch_counts()
     k5 = counts.pop("extract_level_windows")
     assert k5 == 0 and all(v > 0 for v in counts.values()), counts
-    assert counts["march_shade"] == 4
+    # sample 0 through K2, samples 1-3 in one burst kernel
+    assert counts["march_shade"] == 1 and counts["march_burst"] == 1
     assert img.shape == (144, 256, 3) and img.max() > 0
     assert torch.isfinite(s._accum).all()
 
@@ -365,6 +368,7 @@ def test_scene_renders_through_the_kernels(cuda):
     counts = kernels.launch_counts()
     assert counts["extract_level_windows"] == 3, counts
     assert counts["march_shade"] == 0 and counts["extract_group_windows"] == 0
+    assert counts["march_burst"] == 0
     assert torch.isfinite(sb._accum).all()
     d = np.abs(img_b.astype(int) - img.astype(int)).max(axis=-1)
     assert d.mean() < 3.0
@@ -402,6 +406,96 @@ def test_scene_renders_through_the_kernels(cuda):
         both = (k_out[3] > 0.5) & (p_out[3] > 0.5)
         for i in range(4, 8):
             assert (k_out[i] - p_out[i]).abs()[both].max().item() < 5e-2
+
+
+@pytest.fixture(scope="module")
+def burst_1080p(tmp_path_factory):
+    """The burst call of a cold 32-sample 1920x1080 view (16200 blocks of
+    128 rays) of the march path, recorded on the card, on chip_smoke.py's
+    synthetic 11520x23040 map (cached in a temporary directory)."""
+    import os
+
+    from moonrtx_tpu_torch.app import headless
+    from moonrtx_tpu_torch.config import RenderConfig
+    from moonrtx_tpu_torch.data import loader
+    from moonrtx_tpu_torch.types import Observer
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kernels.build_all()
+    cache = str(tmp_path_factory.mktemp("cache"))
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MOONRTX_TPU_CACHE", cache)
+    mp.setattr(loader, "SYNTH_CACHE_DIR", cache)
+    try:
+        cfg = RenderConfig(
+            observer=Observer(50.06, 19.94, 219),
+            dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
+            width=1920, height=1080, shadow_accuracy=10, backend="pallas",
+            synth_shape=(11520, 23040), downscale=1).validate()
+        s = headless.build_scene(cfg, with_starmap=False)
+        s.update_view()
+        with kernels.recording() as calls:
+            s.render(32)
+        torch.cuda.synchronize()
+    finally:
+        mp.undo()
+    assert os.path.isdir(cache)
+    bursts = [c for name, c in calls if name == "march_burst"]
+    assert len(bursts) == 1 and len(calls) == 8       # K1 x3, K4 x2, K3, K2
+    return bursts[0]
+
+
+def _k2_loop(call):
+    """The burst as the march path ran it before the burst kernel: per
+    sample block_rays, one K2 launch and the running mean in torch."""
+    from moonrtx_tpu_torch.engine import blocked
+
+    ns = call["t_prev"].shape[0]
+    ar, ag, ab = call["r"], call["g"], call["b"]
+    tp, fpv = call["t_prev"], call["f_prev"]
+    for i in range(1, call["n_samples"]):
+        geom = blocked.block_rays(call["basis"], call["rotation"],
+                                  call["jitters"][i], call["height"],
+                                  call["width"], call["h_min"],
+                                  h_bound=call["h_bound"], image_dirs=False)
+        rays = [geom.db[..., k].reshape(ns, 8, 128) for k in range(3)] + [
+            geom.t_enter.reshape(ns, 8, 128), geom.t_end.reshape(ns, 8, 128),
+            geom.hit_outer.float().reshape(ns, 8, 128)]
+        r, g, b, hitf, t_hit, *_ = march_shade.march_shade(
+            call["params"], *rays, call["scal"], call["hwin"], call["awin"],
+            call["swin"], call["h"], call["w"], n_coarse=call["n_coarse"],
+            n_bisect=call["n_bisect"], use_shadow=call["use_shadow"],
+            use_earth=call["use_earth"], t_prev=tp, f_prev=fpv)
+        k = i + 1.0
+        ar, ag, ab = ar + (r - ar) / k, ag + (g - ag) / k, ab + (b - ab) / k
+        tp, fpv = t_hit, hitf
+    return ar, ag, ab
+
+
+@pytest.mark.parametrize("n_samples", [2, 8, 32])
+def test_march_burst_matches_plain(burst_1080p, n_samples):
+    """The burst kernel gives the mean planes of the per-sample K2 loop it
+    replaced bit for bit, and is within 1e-4 of march_burst_plain (on
+    this map K2's own rgb error against its plain version is 2.6e-5; on
+    the 360x720 test map it reaches 1.05e-4 in a 2-sample mean); a burst
+    of N samples is not one of N/2 (the samples are all computed)."""
+    call = burst_1080p
+    assert call["t_prev"].shape == (2025, 8, 128)
+    assert call["n_samples"] == 32
+    call = dict(call, n_samples=n_samples)
+    got = march_shade.march_burst(**call)
+    loop = _k2_loop(call)
+    ref = march_shade.march_burst_plain(**call)
+    half = (march_shade.march_burst(**dict(call, n_samples=n_samples // 2))
+            if n_samples > 2 else (call["r"], call["g"], call["b"]))
+    torch.cuda.synchronize()
+    for i in range(3):
+        assert torch.equal(got[i], loop[i])
+    err = max(float((got[i] - ref[i]).abs().max()) for i in range(3))
+    moved = max(float((got[i] - half[i]).abs().max()) for i in range(3))
+    assert err <= 1e-4, err
+    assert moved > 1e-4, moved
 
 
 def _session_scene(seed=5):
@@ -519,7 +613,8 @@ def test_mesh_scene_on_card_matches_single_device(cuda):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {
         "extract_group_windows": 12, "extract_level_windows": 0,
-        "resample_group_windows": 8, "shadow_factor": 4, "march_shade": 16}
+        "resample_group_windows": 8, "shadow_factor": 4, "march_shade": 16,
+        "march_burst": 0}
     from moonrtx_tpu_torch.data.synth import synthesize_moon
 
     elev, albedo = synthesize_moon(512, 1024, seed=7, n_craters=120)
