@@ -17,8 +17,8 @@ Phases, each fatal on failure:
 2. build the CUDA kernels from csrc/ (parallel nvcc) and report it;
 3. the march path: build_scene -> update_view -> render(32), with every
    kernel launch counter set to 0 just before and read just after; each
-   of its kernels (K1-K4) must have launched, the march 32 times, and the
-   frame must be finite; then a warm re-burst (same pose) for the
+   of its kernels (K1-K4, the bounce kernels) must have launched, the
+   march once and the burst kernel once, and the frame must be finite; then a warm re-burst (same pose) for the
    per-sample time.
    The blocked path, on the same scene and maps (switched with
    ``scene.backend``, pose caches dropped with ``set_view_orientation``):
@@ -30,7 +30,9 @@ Phases, each fatal on failure:
    the kernel against its plain PyTorch version (with each kernel's
    tolerance), then timed: the kernel from torch.profiler's device events
    of its own launches (no host time; a kernel of several passes is the
-   sum of its passes, which are also printed one by one), the plain
+   sum of its passes, which are also printed one by one; the bounce
+   pyramid's wrapper launches its pyramid kernel once a bounce and its
+   collapse kernel once a level and bounce), the plain
    version and, where one exists, a single library call computing the
    same function (or the stated half of it) from CUDA events;
    the bound is computed from these inputs (bytes at 3.35 TB/s, operations
@@ -154,17 +156,25 @@ KERNELS = {
         source="moonrtx_tpu_torch/csrc/resample.cu",
         kernel=("resample_kernel",),
         replaces="moonrtx_tpu/ops/extract.py:516"),
+    # no pallas_call: the JAX package's pyramid is jnp code XLA fuses
+    "bounce_from_parts": dict(
+        source="moonrtx_tpu_torch/csrc/bounce.cu",
+        kernel=("bounce_pyramid_kernel", "bounce_collapse_kernel"),
+        replaces="moonrtx_tpu/ops/shadow_scan.py:447"),
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
     "pallas": ("extract_group_windows", "march_shade", "march_burst",
-               "shadow_factor", "resample_group_windows"),
+               "shadow_factor", "resample_group_windows",
+               "bounce_from_parts"),
     "blocked": ("extract_level_windows",),
     # the interactive session: time steps and drags on the march path (K1
-    # shadow windows, K3/K4 scan, K4 bounce refresh, K2), time steps on
-    # the blocked path (K5 shadow|bounce windows)
+    # shadow windows, K3/K4 scan, K4 and the bounce kernels in the bounce
+    # refresh, K2), time steps on the blocked path (K5 shadow|bounce
+    # windows)
     "session": ("extract_group_windows", "march_shade", "shadow_factor",
-                "resample_group_windows", "extract_level_windows"),
+                "resample_group_windows", "extract_level_windows",
+                "bounce_from_parts"),
 }
 SESSION_STEPS = 8          # steps per time-step metric (bench.py:191-350)
 SESSION_PICKS = 20         # cursor positions of the pick metric
@@ -189,12 +199,13 @@ MESH_DEVICES = 4
 # three times per strip (heights, albedo, shadow|bounce; banded, the first
 # two are each device's band-local extraction for the whole frame); K2
 # once per sample and strip (the strips' own burst loop, no burst
-# kernel); no K5
+# kernel); no K5; the bounce pyramid once, on the gathered grid
 MESH_COLD_LAUNCHES = {"resample_group_windows": 2 * MESH_DEVICES,
                       "shadow_factor": MESH_DEVICES,
                       "extract_group_windows": 3 * MESH_DEVICES,
                       "march_shade": SAMPLES * MESH_DEVICES,
-                      "march_burst": 0, "extract_level_windows": 0}
+                      "march_burst": 0, "extract_level_windows": 0,
+                      "bounce_from_parts": 1}
 MESH_BAND_BUDGET_GB = 0.01     # 8c: small enough to band the render level
 # 8c's camera, at this share of phase 3's distance: the render level is
 # then the 5760-row level 1 of the 11520-row map, which the band plan may
@@ -233,16 +244,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, passes: tuple, reps: int) -> tuple[float, dict]:
+def device_ms(fn, passes: tuple, reps: int,
+              per_call: dict | None = None) -> tuple[float, dict]:
     """Mean device milliseconds of one call of fn, which launches each of
-    the CUDA functions ``passes`` once, over reps calls (after a warm-up):
-    (all passes summed, {pass: its own}). From torch.profiler's device
-    events of those functions alone, so the host work of the wrapper
-    between launches is not counted. Every pass should show exactly reps
-    events, but the profiler sometimes drops a few (29 of 30, once 10 of
-    30): such a window is measured again, up to five in all, and after
-    that the last one counts if it shows at least half of every pass's
-    launches, each pass averaged over the events it has."""
+    the CUDA functions ``passes`` once (or ``per_call[pass]`` times), over
+    reps calls (after a warm-up): (all passes summed, {pass: its own}).
+    From torch.profiler's device events of those functions alone, so the
+    host work of the wrapper between launches is not counted. Every pass
+    should show exactly its launches, but the profiler sometimes drops a
+    few (29 of 30, once 10 of 30): such a window is measured again, up to
+    five in all, and after that the last one counts if it shows at least
+    half of every pass's launches, each pass averaged over the events it
+    has."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -258,13 +271,16 @@ def device_ms(fn, passes: tuple, reps: int) -> tuple[float, dict]:
                        if ev.device_type == torch.autograd.DeviceType.CUDA
                        and kernel in ev.name] for kernel in passes}
         seen = {kernel: len(v) for kernel, v in us.items()}
-        if all(n == reps for n in seen.values()):
+        want = {kernel: reps * (per_call or {}).get(kernel, 1)
+                for kernel in passes}
+        if seen == want:
             break
         print(f"#   profiler window {attempt}: saw {seen} launches, expected "
-              f"{reps} of each", flush=True)
-    if not all(reps // 2 <= n <= reps for n in seen.values()):
-        fail(f"the profiler saw {seen} launches, expected {reps} of each")
-    by_pass = {kernel: sum(v) / len(v) / 1e3 for kernel, v in us.items()}
+              f"{want}", flush=True)
+    if not all(want[k] // 2 <= n <= want[k] for k, n in seen.items()):
+        fail(f"the profiler saw {seen} launches, expected {want}")
+    by_pass = {kernel: sum(v) / len(v) / 1e3 * want[kernel] / reps
+               for kernel, v in us.items()}
     return sum(by_pass.values()), by_pass
 
 
@@ -320,6 +336,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def launches_per_call(name: str, call: dict) -> dict | None:
+    """Launches of each pass in one call of a wrapper that launches a pass
+    more than once: the bounce pyramid's kernel once a bounce, its
+    collapse kernel once a level and bounce."""
+    if name != "bounce_from_parts":
+        return None
+    from moonrtx_tpu_torch.ops import shadow_scan
+
+    passes = 2 if call["n_bounces"] >= 2 else 1
+    return {"bounce_pyramid_kernel": passes,
+            "bounce_collapse_kernel": passes * shadow_scan.bounce_levels(
+                *call["hs"].shape)}
+
+
 def bound_of(name: str, call: dict, out) -> tuple[float, str]:
     """(least milliseconds, "bytes" or "operations") for one launch on
     these inputs: each input byte read once, each output byte written
@@ -345,6 +375,11 @@ def bound_of(name: str, call: dict, out) -> tuple[float, str]:
     elif name == "shadow_factor":
         by = nbytes(call["hs"], call["st"], call["ct"], out)
         ops = 40 * call["hs"].numel()               # scan step + atan2
+    elif name == "bounce_from_parts":
+        # portbench/metrics/bounce.roofline.view.py's count: hs, factor,
+        # alb_s and the map once, each coarser level's inputs once, the
+        # plain version's operations a cell of each level and bounce
+        by, ops = bounce_count(call)
     elif name == "march_burst":
         # rays known live from sample 0's hits: K2's 360 flops a ray and
         # 400 a hit for each warm sample; params, chord bounds, jitters,
@@ -380,6 +415,25 @@ def bound_of(name: str, call: dict, out) -> tuple[float, str]:
     t_bytes = by / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bounce_count(call: dict) -> tuple[int, int]:
+    """(bytes, float32 operations) of the bounce pyramid's least time
+    (portbench/metrics/bounce.roofline.view.py holds the same count)."""
+    from moonrtx_tpu_torch.ops import shadow_scan
+
+    n_theta, n_phi = call["hs"].shape
+    passes = 2 if call["n_bounces"] >= 2 else 1
+    cells = [(n_theta >> k) * (n_phi >> k) for k in
+             range(shadow_scan.bounce_levels(n_theta, n_phi))]
+    n0 = cells[0]
+    by = 4 * n0 * 4 + 4 * sum(cells[1:]) * (2 + passes)
+    # a cell of a level: 8 sectors of 15, blur and h_blk 12; the collapse
+    # 104 where a coarser level exists; decimation 11 on coarser levels;
+    # level 0's sum 18, its n.l 20, the second bounce's product and sum 2
+    per_bounce = (sum(cells) * 132 + sum(cells[:-1]) * 104
+                  + sum(cells[1:]) * 11 + n0 * 18)
+    return by, passes * per_bounce + n0 * 20 + (passes - 1) * n0 * 2
 
 
 def library_call(name: str, call: dict):
@@ -455,6 +509,30 @@ def compare(name: str, call: dict, got, ref) -> list:
     elif name == "shadow_factor":
         err = float((got - ref).abs().max())
         tol = 1e-4                                  # atan2 polynomial
+    elif name == "bounce_from_parts":
+        # 1e-5, except on no larger a share of cells than that which 1-ulp
+        # noise on hs moves the plain version itself beyond 1e-5: there
+        # what the noise moves it (a tie of two sin^2 flips a choice;
+        # tests/test_torch_gpu.py BOUNCE_TOL)
+        import numpy as np
+        import torch
+
+        from moonrtx_tpu_torch.ops import shadow_scan
+
+        hs = call["hs"].cpu().numpy()
+        up = np.random.default_rng(11).random(hs.shape) < 0.5
+        noisy_hs = np.nextafter(hs, np.where(up, np.inf, -np.inf)
+                                .astype(np.float32))
+        noisy = shadow_scan.bounce_from_parts_plain(**dict(
+            call, hs=torch.from_numpy(noisy_hs).to(call["hs"].device)))
+        d, moved = (got - ref).abs(), (noisy - ref).abs()
+        err = float(d.max())
+        tol = max(1e-5, float(moved.max()))
+        share = float((d > 1e-5).float().mean())
+        noise_share = float((moved > 1e-5).float().mean())
+        if share > noise_share:
+            fail(f"{name}: {share:.3g} of cells beyond 1e-5, more than the "
+                 f"{noise_share:.3g} that 1-ulp noise on hs moves")
     elif name == "march_burst":
         # the mean of K2's samples, whose rgb is within 2.6e-5 of its plain
         # version's on this map (PERF.md)
@@ -1344,7 +1422,8 @@ def main(argv=None) -> int:
     from moonrtx_tpu_torch import kernels
     from moonrtx_tpu_torch.app import headless
     from moonrtx_tpu_torch.config import RenderConfig
-    from moonrtx_tpu_torch.ops import extract, march_shade, shadow_prefix
+    from moonrtx_tpu_torch.ops import (extract, march_shade, shadow_prefix,
+                                       shadow_scan)
     from moonrtx_tpu_torch.types import Observer
 
     # ---- 1. the card -----------------------------------------------------
@@ -1515,7 +1594,8 @@ def main(argv=None) -> int:
              "resample_group_windows": extract.resample_group_windows_plain,
              "shadow_factor": shadow_prefix.shadow_factor_plain,
              "march_shade": march_shade.march_shade_plain,
-             "march_burst": march_shade.march_burst_plain}
+             "march_burst": march_shade.march_burst_plain,
+             "bounce_from_parts": shadow_scan.bounce_from_parts_plain}
     wrapper = kernels.wrappers()
     # launches to replay: every call of the frame (K2 once, for sample 0)
     picked: dict = {name: [] for name in KERNELS}
@@ -1542,7 +1622,8 @@ def main(argv=None) -> int:
                     errs[what] = (err, tol)
             b_ms, b_by = bound_of(name, call, got)
             k_ms, by_pass = device_ms(lambda: wrapper[name](**call),
-                                      KERNELS[name]["kernel"], 30)
+                                      KERNELS[name]["kernel"], 30,
+                                      launches_per_call(name, call))
             for kernel, ms in by_pass.items():
                 passes[kernel] += ms
             p_ms = cuda_ms(lambda: plain[name](**call), 2)

@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("extract", "resample", "shadow_prefix", "march_shade")
+SOURCES = ("extract", "resample", "shadow_prefix", "march_shade", "bounce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -148,7 +148,8 @@ def recording():
 def wrappers() -> dict:
     """{name: wrapper} of every kernel wrapper; each carries an integer
     ``launches`` count, bumped only where it launches its kernel."""
-    from moonrtx_tpu_torch.ops import extract, march_shade, shadow_prefix
+    from moonrtx_tpu_torch.ops import (extract, march_shade, shadow_prefix,
+                                       shadow_scan)
 
     return {
         "extract_group_windows": extract.extract_group_windows,
@@ -157,6 +158,7 @@ def wrappers() -> dict:
         "shadow_factor": shadow_prefix.shadow_factor,
         "march_shade": march_shade.march_shade,
         "march_burst": march_shade.march_burst,
+        "bounce_from_parts": shadow_scan.bounce_from_parts,
     }
 
 

@@ -15,8 +15,10 @@ block count does not divide by the resample group, windows cut by K5,
 ops/extract.py::extract_windows, and sampled in plain torch). With
 ``blocked_resample=False`` the scan is the reference's gather resample
 and running-max formulation in plain torch ops, the check of the kernel
-path. The bounce pyramid is plain torch, as the reference computes it in
-XLA.
+path. The bounce pyramid runs as hand-written kernels on the card
+(csrc/bounce.cu: one pyramid launch and one collapse launch a level, per
+bounce) and as plain torch ops on the CPU (bounce_from_parts_plain, the
+kernels' yardstick), which the reference computes in XLA.
 
 The scan grid is banded: coarse from the subsolar pole to 75 deg, fine
 across the terminator band 75..105 deg; the shadow-accuracy factor
@@ -25,12 +27,14 @@ scales the fine band's resolution.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from moonrtx_tpu_torch import constants as C
+from moonrtx_tpu_torch import kernels
 from moonrtx_tpu_torch.engine.geometry import unit_to_latlon
 from moonrtx_tpu_torch.ops import extract as extract_ops
 from moonrtx_tpu_torch.ops import sampler
@@ -391,13 +395,22 @@ def _sector_collapse(hs, rad, theta0, dphi, n_levels: int):
     return s2_acc, j_acc
 
 
-@span("scene.bounce")
-def bounce_from_parts(hs, factor, alb_s, n_coarse: int, n_fine: int,
-                      n_phi: int, n_bounces: int = 1):
-    """Terrain interreflection map on the scan grid (1 or 2 bounces): a
-    dense radiosity estimate E = (1/8) sum_d J_d sin^2(alpha_d) over eight
-    directional sectors, with J = albedo * n.l * lit from scan-grid height
-    slopes (see the reference's docstring for the physics)."""
+def bounce_levels(n_theta: int, n_phi: int) -> int:
+    """Levels of the bounce pyramid on an (n_theta, n_phi) scan grid:
+    halve while both sides divide and the smaller stays >= 16 cells."""
+    n_levels = 1
+    while (n_levels < BOUNCE_MAX_LEVELS
+           and n_theta % (2 ** n_levels) == 0
+           and n_phi % (2 ** n_levels) == 0
+           and min(n_theta, n_phi) // (2 ** n_levels) >= BOUNCE_MIN_SIZE):
+        n_levels += 1
+    return n_levels
+
+
+def bounce_from_parts_plain(hs, factor, alb_s, n_coarse: int, n_fine: int,
+                            n_phi: int, n_bounces: int = 1):
+    """Plain PyTorch version of bounce_from_parts (the CPU path, and the
+    kernels' yardstick on the card)."""
     dev = hs.device
     theta0 = np.deg2rad(_theta_grid(n_coarse, n_fine)).astype(np.float32)
     dphi = 2.0 * np.pi / n_phi
@@ -416,14 +429,7 @@ def bounce_from_parts(hs, factor, alb_s, n_coarse: int, n_fine: int,
         * torch.rsqrt(1.0 + s_th * s_th + s_ph * s_ph)
     rad = alb_s * torch.clamp(ndl, 0.0, 1.0) * factor
 
-    n_theta = n_coarse + n_fine
-    n_levels = 1
-    while (n_levels < BOUNCE_MAX_LEVELS
-           and n_theta % (2 ** n_levels) == 0
-           and n_phi % (2 ** n_levels) == 0
-           and min(n_theta, n_phi) // (2 ** n_levels) >= BOUNCE_MIN_SIZE):
-        n_levels += 1
-
+    n_levels = bounce_levels(n_coarse + n_fine, n_phi)
     scale = BOUNCE_WALL_LIT_FRACTION / 8.0
     s2_acc, j_acc = _sector_collapse(hs, rad, theta0, dphi, n_levels)
     e1 = scale * torch.sum(s2_acc * j_acc, dim=0)
@@ -433,6 +439,111 @@ def bounce_from_parts(hs, factor, alb_s, n_coarse: int, n_fine: int,
                                        n_levels)
     e2 = scale * torch.sum(s2_acc2 * j2_acc, dim=0)
     return torch.clamp(e1 + e2, 0.0, BOUNCE_MAX)
+
+
+BOUNCE_TILE = 64   # the pyramid kernel's level-0 tile (csrc/bounce.cu PT)
+
+
+def bounce_ok(n_theta: int, n_phi: int) -> bool:
+    """True for the scan grids the bounce kernels tile: both sides
+    multiples of 64, so a 64x64 level-0 tile holds every level of a
+    7-level pyramid (every grid of _resolution, wedges gathered)."""
+    return (n_theta > 0 and n_phi > 0 and n_theta % BOUNCE_TILE == 0
+            and n_phi % BOUNCE_TILE == 0)
+
+
+def bounce_rows(n_coarse: int, n_fine: int, n_phi: int) -> np.ndarray:
+    """The bounce kernels' per-row arrays, float32, as the plain version
+    forms them: level 0's dth0, st0, dphi * max(st0, 0.05) and ct0, then
+    per level k its dth_k, dl_phi_k and diagonal run (csrc/bounce.cu
+    layout_of). Host arithmetic: numpy on the plain version's float32
+    arrays, each product and sum of a float32 pair rounded once as torch
+    rounds it."""
+    f = np.float32
+    theta0 = np.deg2rad(_theta_grid(n_coarse, n_fine)).astype(f)
+    dphi = 2.0 * np.pi / n_phi
+    st0 = np.sin(theta0).astype(f)
+    parts = [np.gradient(theta0).astype(f), st0,
+             f(dphi) * np.maximum(st0, f(0.05)), np.cos(theta0).astype(f)]
+    theta_k = theta0
+    for k in range(bounce_levels(n_coarse + n_fine, n_phi)):
+        if k:
+            theta_k = f(0.5) * (theta_k[::2] + theta_k[1::2])
+        dth_k = np.maximum(np.gradient(theta_k), 1e-6).astype(f)
+        st_k = np.sin(theta_k).astype(f)
+        dl_phi = np.minimum(np.maximum(f(dphi * (2 ** k)) * st_k,
+                                       dth_k * f(0.25)), dth_k * f(4.0))
+        parts += [dth_k, dl_phi, np.sqrt(dth_k * dth_k + dl_phi * dl_phi)]
+    return np.concatenate(parts).astype(f)
+
+
+class _BounceArgs(ctypes.Structure):
+    _fields_ = [("hs", ctypes.c_void_p), ("factor", ctypes.c_void_p),
+                ("alb", ctypes.c_void_p), ("rows", ctypes.c_void_p),
+                ("scratch", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("nt", ctypes.c_int), ("np", ctypes.c_int),
+                ("n_levels", ctypes.c_int), ("n_bounces", ctypes.c_int),
+                ("scale", ctypes.c_float), ("e_max", ctypes.c_float)]
+
+
+_rows_on_device: dict = {}   # (n_coarse, n_fine, n_phi, device) -> rows
+
+
+@span("scene.bounce")
+def bounce_from_parts(hs, factor, alb_s, n_coarse: int, n_fine: int,
+                      n_phi: int, n_bounces: int = 1):
+    """Terrain interreflection map on the scan grid (1 or 2 bounces): a
+    dense radiosity estimate E = (1/8) sum_d J_d sin^2(alpha_d) over eight
+    directional sectors, with J = albedo * n.l * lit from scan-grid height
+    slopes (see the reference's docstring for the physics).
+
+    hs, factor, alb_s: (n_coarse + n_fine, n_phi) f32. On the card, one
+    pyramid launch and one collapse launch a level per bounce
+    (csrc/bounce.cu), raising for a grid bounce_ok refuses; on the CPU
+    the plain version. Returns (n_theta, n_phi) f32 in [0, BOUNCE_MAX]."""
+    call = dict(locals())
+    if hs.device.type == "cpu":
+        return bounce_from_parts_plain(hs, factor, alb_s, n_coarse, n_fine,
+                                       n_phi, n_bounces)
+    n_theta = n_coarse + n_fine
+    if not bounce_ok(n_theta, n_phi):
+        raise ValueError(f"unsupported bounce grid ({n_theta}, {n_phi}): "
+                         f"both sides must be multiples of {BOUNCE_TILE}")
+    for t in (hs, factor, alb_s):
+        if t.shape != (n_theta, n_phi) or t.dtype != torch.float32:
+            raise ValueError(f"bounce inputs must be ({n_theta}, {n_phi}) "
+                             "f32")
+        if t.device != hs.device:
+            raise ValueError("bounce inputs must share a device")
+    key = (n_coarse, n_fine, n_phi, hs.device)
+    rows = _rows_on_device.get(key)
+    if rows is None:
+        rows = torch.as_tensor(bounce_rows(n_coarse, n_fine, n_phi),
+                               device=hs.device)
+        _rows_on_device[key] = rows
+    n_levels = bounce_levels(n_theta, n_phi)
+    passes = 2 if n_bounces >= 2 else 1
+    lib = kernels.lib("bounce")
+    lib.mrtx_bounce_scratch.argtypes = [ctypes.c_int] * 4
+    lib.mrtx_bounce_scratch.restype = ctypes.c_longlong
+    hs, factor, alb_s = (t.contiguous() for t in (hs, factor, alb_s))
+    scratch = torch.empty(
+        lib.mrtx_bounce_scratch(n_theta, n_phi, n_levels, passes),
+        dtype=torch.float32, device=hs.device)
+    out = torch.empty_like(hs)
+    a = _BounceArgs(hs.data_ptr(), factor.data_ptr(), alb_s.data_ptr(),
+                    rows.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                    n_theta, n_phi, n_levels, passes,
+                    BOUNCE_WALL_LIT_FRACTION / 8.0, BOUNCE_MAX)
+    with torch.cuda.device(hs.device):
+        rc = kernels.entry("bounce", "mrtx_bounce", _BounceArgs)(
+            ctypes.byref(a), kernels.stream_of(out))
+    kernels.check("bounce", rc)
+    kernels.launched(bounce_from_parts, call)
+    return out
+
+
+bounce_from_parts.launches = 0
 
 
 def sun_frame_basis(sun_dir_body):

@@ -17,7 +17,9 @@ on >= 99.9% of hit flags, within 2e-2 on rgb and within 5e-2 on the hit
 distance and point where both hit (its transcendental functions are the
 card's own); the burst kernel (samples 1..N-1 of an accumulation in one
 launch) gives the per-sample K2 loop's mean bit for bit and is within
-1e-4 of its plain version on a 1080p view of chip_smoke.py's map.
+1e-4 of its plain version on a 1080p view of chip_smoke.py's map; the
+bounce kernels are within 1e-5 of their plain version except where the
+plain version's own ties flip (BOUNCE_TOL).
 """
 
 from datetime import datetime, timezone
@@ -442,7 +444,8 @@ def burst_1080p(tmp_path_factory):
         mp.undo()
     assert os.path.isdir(cache)
     bursts = [c for name, c in calls if name == "march_burst"]
-    assert len(bursts) == 1 and len(calls) == 8       # K1 x3, K4 x2, K3, K2
+    # K1 x3, K4 x2, K3, the bounce pyramid, K2
+    assert len(bursts) == 1 and len(calls) == 9
     return bursts[0]
 
 
@@ -496,6 +499,146 @@ def test_march_burst_matches_plain(burst_1080p, n_samples):
     moved = max(float((got[i] - half[i]).abs().max()) for i in range(3))
     assert err <= 1e-4, err
     assert moved > 1e-4, moved
+
+
+# The bounce kernels against the plain version on the card: max |d| <=
+# BOUNCE_TOL on a map whose values are at most 0.5. The kernels now sum
+# as torch's reductions on the card do and give the plain map bit for
+# bit, but torch does not promise those orders; and where an order moves
+# one rounding, the plain version's own choices (far against near
+# blocker, s2_2 > s2_1; fine against coarse level, s2_f > s2_acc) flip
+# where two sin^2 tie to within it. So on a share of cells no larger than
+# the share that 1-ulp noise on hs moves the plain version itself beyond
+# BOUNCE_TOL (the self-noise rule of
+# tests/torch_parity.py::scan_self_noise), the limit is what that noise
+# moves it.
+BOUNCE_TOL = 1e-5
+
+
+def _assert_bounce_close(got, call, plain):
+    from torch_parity import ulp_noise
+
+    ref = plain(**call)
+    noisy_hs = torch.from_numpy(ulp_noise(call["hs"].cpu().numpy(), 11))
+    noisy = plain(**dict(call, hs=noisy_hs.to(call["hs"].device)))
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    moved = (noisy - ref).abs()
+    noise_share = (moved > BOUNCE_TOL).float().mean().item()
+    over = (d > BOUNCE_TOL).float().mean().item()
+    assert float(ref.max()) > 1e-3           # the map has light to carry
+    assert over <= noise_share, (over, noise_share, float(d.max()))
+    assert float(d.max()) <= max(BOUNCE_TOL, float(moved.max()))
+
+
+@pytest.fixture(scope="module")
+def bounce_1080p():
+    """The bounce call of a real scan at shadow accuracy 10 (the 1080p
+    views' 1536x4096 scan grid, 7 pyramid levels) of a synthetic map,
+    recorded on the card, and its scene."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kernels.build_all()
+    from moonrtx_tpu_torch.config import RenderConfig
+    from moonrtx_tpu_torch.data.synth import synthesize_moon
+    from moonrtx_tpu_torch.engine.scene import MoonScene
+    from moonrtx_tpu_torch.ops import shadow_scan
+    from moonrtx_tpu_torch.types import Observer
+
+    elev, albedo = synthesize_moon(720, 1440, seed=5, n_craters=300)
+    rs = float(elev.max())
+    cfg = RenderConfig(
+        observer=Observer(50.06, 19.94, 219),
+        dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
+        width=256, height=144, shadow_accuracy=10, backend="pallas",
+    ).validate()
+    s = MoonScene(cfg, (elev / rs).astype(np.float32), rs, albedo, None)
+    s.update_view()
+    with kernels.recording() as calls:
+        s.render(1)
+    torch.cuda.synchronize()
+    got = [c for name, c in calls if name == "bounce_from_parts"]
+    assert len(got) == 1
+    call = got[0]
+    assert call["hs"].shape == (1536, 4096)
+    assert shadow_scan.bounce_levels(1536, 4096) == 7
+    return s, call
+
+
+@pytest.mark.parametrize("n_bounces", [1, 2])
+def test_bounce_kernel_matches_plain_on_the_1080p_grid(bounce_1080p,
+                                                       n_bounces):
+    from moonrtx_tpu_torch.ops import shadow_scan
+
+    _, call = bounce_1080p
+    call = dict(call, n_bounces=n_bounces)
+    n0 = shadow_scan.bounce_from_parts.launches
+    got = shadow_scan.bounce_from_parts(**call)
+    torch.cuda.synchronize()
+    assert shadow_scan.bounce_from_parts.launches == n0 + 1
+    _assert_bounce_close(got, call, shadow_scan.bounce_from_parts_plain)
+
+
+@pytest.mark.parametrize("grid", [(128, 256, 512), (32, 32, 128)],
+                         ids=["5-levels", "3-levels"])
+@pytest.mark.parametrize("n_bounces", [1, 2])
+def test_bounce_kernel_matches_plain_on_small_grids(cuda, grid, n_bounces):
+    """Fewer levels, and (3 levels) a coarsest level of 16x32 cells,
+    smaller than a collapse tile."""
+    from moonrtx_tpu_torch.ops import shadow_scan
+
+    nc, nf, nphi = grid
+    rng = np.random.default_rng(3)
+    shape = (nc + nf, nphi)
+    hs = 1.0 + 0.002 * rng.standard_normal(shape)
+    factor = (rng.random(shape) > 0.3).astype(np.float32)
+    alb = 0.1 + 0.1 * rng.random(shape)
+    call = dict(hs=hs, factor=factor, alb_s=alb)
+    call = {k: torch.from_numpy(v.astype(np.float32)).to(cuda)
+            for k, v in call.items()}
+    call.update(n_coarse=nc, n_fine=nf, n_phi=nphi, n_bounces=n_bounces)
+    got = shadow_scan.bounce_from_parts(**call)
+    _assert_bounce_close(got, call, shadow_scan.bounce_from_parts_plain)
+
+
+@pytest.mark.parametrize("n_bounces", [1, 2])
+def test_bounce_refresh_on_card_matches_plain(bounce_1080p, n_bounces):
+    """bounce_refresh (the held-key path's rebuild behind a frame) goes
+    through the kernels too."""
+    from moonrtx_tpu_torch.ops import shadow_scan
+
+    s, call = bounce_1080p
+    slevel = s.shadow_level()
+    h, w = s.mip_shapes[slevel]
+    nc, nf, nphi = shadow_scan._resolution(s.shadow_accuracy)
+    smap = s._shadow[0]
+    basis = torch.as_tensor(np.asarray(s._bounce_basis, np.float32),
+                            device=smap.device)
+    n0 = shadow_scan.bounce_from_parts.launches
+    got = shadow_scan.bounce_refresh(smap, call["hs"], s.alb_lum(slevel),
+                                     basis, h, w, nc, nf, nphi,
+                                     n_bounces=n_bounces)
+    torch.cuda.synchronize()
+    assert shadow_scan.bounce_from_parts.launches == n0 + 1
+    assert got.shape == (nc + nf, nphi + shadow_scan.PHI_PAD)
+    assert torch.equal(got[:, nphi:], got[:, :shadow_scan.PHI_PAD])
+    alb_s = shadow_scan.resample_alb_half(s.alb_lum(slevel), basis, h, w, nc,
+                                          nf, nphi, 0, nphi)
+    plain_call = dict(hs=call["hs"], factor=smap[:, :nphi], alb_s=alb_s,
+                      n_coarse=nc, n_fine=nf, n_phi=nphi,
+                      n_bounces=n_bounces)
+    _assert_bounce_close(got[:, :nphi], plain_call,
+                         shadow_scan.bounce_from_parts_plain)
+
+
+def test_bounce_kernel_refuses_other_grids(cuda):
+    from moonrtx_tpu_torch.ops import shadow_scan
+
+    hs = torch.ones((96, 512), device=cuda)
+    n0 = shadow_scan.bounce_from_parts.launches
+    with pytest.raises(ValueError, match="unsupported bounce grid"):
+        shadow_scan.bounce_from_parts(hs, hs, hs, 32, 64, 512)
+    assert shadow_scan.bounce_from_parts.launches == n0
 
 
 def _session_scene(seed=5):
@@ -614,7 +757,7 @@ def test_mesh_scene_on_card_matches_single_device(cuda):
     assert kernels.launch_counts() == {
         "extract_group_windows": 12, "extract_level_windows": 0,
         "resample_group_windows": 8, "shadow_factor": 4, "march_shade": 16,
-        "march_burst": 0}
+        "march_burst": 0, "bounce_from_parts": 1}
     from moonrtx_tpu_torch.data.synth import synthesize_moon
 
     elev, albedo = synthesize_moon(512, 1024, seed=7, n_craters=120)

@@ -181,6 +181,66 @@ def test_bounce_from_parts_matches_reference():
     assert np.abs(got.numpy() - ref).max() <= 2e-3
 
 
+def test_bounce_wrapper_takes_the_plain_path_on_the_cpu():
+    """A CPU tensor takes the plain version (no launch); any other device
+    takes the kernels, which refuse a grid they do not tile before they
+    touch the device."""
+    rng = np.random.default_rng(4)
+    nc, nf, nphi = 64, 64, 256
+    shape = (nc + nf, nphi)
+    hs = torch.from_numpy((1.0 + 0.002 * rng.standard_normal(shape))
+                          .astype(np.float32))
+    factor = torch.from_numpy((rng.random(shape) > 0.3).astype(np.float32))
+    alb = torch.from_numpy((0.1 + 0.1 * rng.random(shape)).astype(np.float32))
+    n0 = tscan.bounce_from_parts.launches
+    for n_bounces in (1, 2):
+        got = tscan.bounce_from_parts(hs, factor, alb, nc, nf, nphi,
+                                      n_bounces=n_bounces)
+        assert torch.equal(got, tscan.bounce_from_parts_plain(
+            hs, factor, alb, nc, nf, nphi, n_bounces=n_bounces))
+    assert tscan.bounce_from_parts.launches == n0
+    assert tscan.bounce_ok(nc + nf, nphi) and not tscan.bounce_ok(96, 512)
+    meta = torch.empty((96, 512), device="meta")
+    with pytest.raises(ValueError, match="unsupported bounce grid"):
+        tscan.bounce_from_parts(meta, meta, meta, 32, 64, 512)
+    assert tscan.bounce_from_parts.launches == n0
+
+
+@pytest.mark.parametrize("grid", [(256, 1280, 4096), (256, 256, 2048),
+                                  (32, 32, 128)])
+def test_bounce_rows_match_the_plain_version(grid):
+    """The kernels' per-row table holds, bit for bit, the row arrays the
+    plain version forms on the card (bounce_from_parts_plain,
+    _sector_collapse): torch's float32 products, sums, minima and maxima,
+    and a correctly rounded square root, as the card's sqrtf gives it
+    (torch's vectorised sqrt on the CPU can be 1 ulp off)."""
+    nc, nf, nphi = grid
+    rows = tscan.bounce_rows(nc, nf, nphi)
+    theta0 = np.deg2rad(tscan._theta_grid(nc, nf)).astype(np.float32)
+    dphi = 2.0 * np.pi / nphi
+    st0 = np.sin(theta0).astype(np.float32)
+    want = [np.gradient(theta0).astype(np.float32), st0,
+            (dphi * torch.as_tensor(np.maximum(st0, 0.05))).numpy(),
+            np.cos(theta0)]
+    theta_k = theta0
+    n_levels = tscan.bounce_levels(nc + nf, nphi)
+    for k in range(n_levels):
+        dth_k = torch.as_tensor(np.maximum(np.gradient(theta_k), 1e-6)
+                                .astype(np.float32))
+        st_k = torch.as_tensor(np.sin(theta_k).astype(np.float32))
+        dl_phi = torch.minimum(torch.maximum(dphi * (2 ** k) * st_k,
+                                             dth_k * 0.25), dth_k * 4.0)
+        diag = np.sqrt((dth_k * dth_k + dl_phi * dl_phi).numpy()
+                       .astype(np.float64)).astype(np.float32)
+        want += [dth_k.numpy(), dl_phi.numpy(), diag]
+        theta_k = 0.5 * (theta_k[::2] + theta_k[1::2])
+    want = np.concatenate(want)
+    assert rows.dtype == np.float32 and rows.shape == want.shape
+    np.testing.assert_array_equal(rows.view(np.int32), want.view(np.int32))
+    assert n_levels == (7 if grid[2] == 4096 else
+                        6 if grid[2] == 2048 else 3)
+
+
 def _scan_args(tex, sun, n_phi):
     basis_j = jnp.stack(jscan.sun_frame_basis(jnp.asarray(sun)))
     basis_t = torch.stack(tscan.sun_frame_basis(torch.from_numpy(sun)))

@@ -6,14 +6,16 @@
                                        [--synth-shape 11520x23040]
                                        [--variants]
 
-``scan`` (K3, K4, no scene): runs one accumulation-10 sun scan
-(``build_shadow_and_bounce``: a (1536, 4096) grid, 12,288 height blocks on
-int16 levels, 3,072 half-resolution albedo blocks on f32 levels) over an
-11520x23040 map of random texels made on the card: the scan's geometry,
-and so every window origin and sample coordinate, is the main path's, and
-neither kernel's time depends on the texel values. K3 is replayed at
-every chunk height its kernel takes, and also on the (2304, 4096) grid of
-accuracy 18.
+``scan`` (K3, K4, the bounce kernels, no scene): runs one
+accumulation-10 sun scan (``build_shadow_and_bounce``: a (1536, 4096)
+grid, 12,288 height blocks on int16 levels, 3,072 half-resolution albedo
+blocks on f32 levels) over an 11520x23040 map of random texels made on
+the card: the scan's geometry, and so every window origin and sample
+coordinate, is the main path's, and neither kernel's time depends on the
+texel values. K3 is replayed at every chunk height its kernel takes, and
+also on the (2304, 4096) grid of accuracy 18. The bounce pyramid is
+replayed with one and two bounces, its kernels (``bounce_*``) beside
+its plain version.
 
 ``extract`` (K1, K5): builds ``chip_smoke.py``'s scene (1920x1080,
 shadow accuracy 10, synthetic int16/uint8 map of ``--synth-shape``) and
@@ -76,7 +78,7 @@ def device_ms(fn, reps: int, kernel: str | None = None):
                 if kernel in ev.name]
         rest = [ev.time_range.elapsed_us() for ev in evs
                 if kernel not in ev.name]
-        if len(mine) == reps and len(rest) % reps == 0:
+        if mine and len(mine) % reps == 0 and len(rest) % reps == 0:
             return sum(mine) / reps / 1e3, sum(rest) / reps / 1e3
     raise SystemExit(f"the profiler saw {len(evs)} device events in {reps} "
                      "calls")
@@ -125,6 +127,17 @@ def scan_kernels(tag: str, reps: int) -> None:
                                    reps)
                     emit(root=tag, kernel=name, chunk_rows=rows,
                          grid=list(c["hs"].shape), ms=ms)
+        elif name == "bounce_from_parts":
+            for n_bounces in (1, 2):
+                c = dict(call, n_bounces=n_bounces)
+                ms, other = device_ms(
+                    lambda: shadow_scan.bounce_from_parts(**c), reps,
+                    kernel="bounce_")
+                plain = device_ms(
+                    lambda: shadow_scan.bounce_from_parts_plain(**c), 5)
+                emit(root=tag, kernel=name, n_bounces=n_bounces,
+                     grid=list(c["hs"].shape), ms=ms, other_ms=other,
+                     plain_ms=plain)
 
 
 def _levels_text(levels) -> str:
