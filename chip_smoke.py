@@ -24,15 +24,18 @@ Phases, each fatal on failure:
    ``scene.backend``, pose caches dropped with ``set_view_orientation``):
    counters
    set to 0, render(8), counters read; K5 must have launched three times
-   for the pose (heights, albedo as whole texels, shadow|bounce), the
-   frame must be finite and agree with the march path's frame;
+   for the pose (heights, albedo as whole texels, shadow|bounce) and the
+   blocked sample's kernel once a sample, the frame must be finite and
+   agree with the march path's frame;
 4. every kernel launch the two paths made is replayed on the same inputs:
    the kernel against its plain PyTorch version (with each kernel's
    tolerance), then timed: the kernel from torch.profiler's device events
    of its own launches (no host time; a kernel of several passes is the
    sum of its passes, which are also printed one by one; the bounce
    pyramid's wrapper launches its pyramid kernel once a bounce and its
-   collapse kernel once a level and bounce), the plain
+   collapse kernel once a level and bounce; the blocked sample's kernel
+   also beside its plain version's own device time, without the host's
+   issue, and the blocks an SM holds), the plain
    version and, where one exists, a single library call computing the
    same function (or the stated half of it) from CUDA events;
    the bound is computed from these inputs (bytes at 3.35 TB/s, operations
@@ -161,20 +164,26 @@ KERNELS = {
         source="moonrtx_tpu_torch/csrc/bounce.cu",
         kernel=("bounce_pyramid_kernel", "bounce_collapse_kernel"),
         replaces="moonrtx_tpu/ops/shadow_scan.py:447"),
+    # no pallas_call: the JAX package's blocked sample is jnp code XLA
+    # fuses
+    "blocked_sample": dict(
+        source="moonrtx_tpu_torch/csrc/blocked_sample.cu",
+        kernel=("blocked_sample_kernel",),
+        replaces="moonrtx_tpu/engine/blocked.py:706"),
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
     "pallas": ("extract_group_windows", "march_shade", "march_burst",
                "shadow_factor", "resample_group_windows",
                "bounce_from_parts"),
-    "blocked": ("extract_level_windows",),
+    "blocked": ("extract_level_windows", "blocked_sample"),
     # the interactive session: time steps and drags on the march path (K1
     # shadow windows, K3/K4 scan, K4 and the bounce kernels in the bounce
     # refresh, K2), time steps on the blocked path (K5 shadow|bounce
-    # windows)
+    # windows, the blocked sample)
     "session": ("extract_group_windows", "march_shade", "shadow_factor",
                 "resample_group_windows", "extract_level_windows",
-                "bounce_from_parts"),
+                "bounce_from_parts", "blocked_sample"),
 }
 SESSION_STEPS = 8          # steps per time-step metric (bench.py:191-350)
 SESSION_PICKS = 20         # cursor positions of the pick metric
@@ -205,7 +214,7 @@ MESH_COLD_LAUNCHES = {"resample_group_windows": 2 * MESH_DEVICES,
                       "extract_group_windows": 3 * MESH_DEVICES,
                       "march_shade": SAMPLES * MESH_DEVICES,
                       "march_burst": 0, "extract_level_windows": 0,
-                      "bounce_from_parts": 1}
+                      "bounce_from_parts": 1, "blocked_sample": 0}
 MESH_BAND_BUDGET_GB = 0.01     # 8c: small enough to band the render level
 # 8c's camera, at this share of phase 3's distance: the render level is
 # then the 5760-row level 1 of the 11520-row map, which the band plan may
@@ -380,6 +389,9 @@ def bound_of(name: str, call: dict, out) -> tuple[float, str]:
         # alb_s and the map once, each coarser level's inputs once, the
         # plain version's operations a cell of each level and bounce
         by, ops = bounce_count(call)
+    elif name == "blocked_sample":
+        # portbench/metrics/sample.roofline.step.py's count
+        by, ops = sample_count(call, out)
     elif name == "march_burst":
         # rays known live from sample 0's hits: K2's 360 flops a ray and
         # 400 a hit for each warm sample; params, chord bounds, jitters,
@@ -415,6 +427,42 @@ def bound_of(name: str, call: dict, out) -> tuple[float, str]:
     t_bytes = by / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sample_count(call: dict, out) -> tuple[int, int]:
+    """(bytes, float32 operations) of a blocked sample's least time: the
+    count of portbench/metrics/sample.roofline.step.py, loaded from it."""
+    import importlib.util
+
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "portbench")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)              # its ``harness`` import
+    spec = importlib.util.spec_from_file_location(
+        "sample_roofline_step",
+        os.path.join(bench, "metrics", "sample.roofline.step.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.count(call, out)
+
+
+def plain_device_ms(fn) -> tuple[float, int]:
+    """(device-busy milliseconds, device operations) of one call of fn,
+    after a warm-up, from torch.profiler's device events: the plain
+    version's own device work, without the host's issue between its
+    launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(us) / 1e3, len(us)
 
 
 def bounce_count(call: dict) -> tuple[int, int]:
@@ -533,6 +581,25 @@ def compare(name: str, call: dict, got, ref) -> list:
         if share > noise_share:
             fail(f"{name}: {share:.3g} of cells beyond 1e-5, more than the "
                  f"{noise_share:.3g} that 1-ulp noise on hs moves")
+    elif name == "blocked_sample":
+        # bit for bit on the card (tests/test_torch_gpu.py): fatal only
+        # beyond hit flags differing on 1e-5 of the pixels, or 1e-5 on
+        # rgb and hit buffer where both hit
+        import torch
+
+        hit_g, hit_r = got.hitbuf[..., 3] > 0, ref.hitbuf[..., 3] > 0
+        flips = float((hit_g != hit_r).float().mean())
+        both = (hit_g & hit_r)[..., None]
+        err = max(float(torch.where(both, got.rgb - ref.rgb, 0.0).abs().max()),
+                  float(torch.where(both, got.hitbuf - ref.hitbuf, 0.0)
+                        .abs().max()))
+        tol = 1e-5
+        bits = torch.equal(got.rgb, ref.rgb) and torch.equal(got.hitbuf,
+                                                            ref.hitbuf)
+        print(f"#   blocked_sample launch: bit for bit {bits}; hit flags "
+              f"differ on {flips:.3g} of the pixels", flush=True)
+        if flips > 1e-5:
+            fail(f"{name}: hit flags differ on {flips} of the pixels")
     elif name == "march_burst":
         # the mean of K2's samples, whose rgb is within 2.6e-5 of its plain
         # version's on this map (PERF.md)
@@ -1422,8 +1489,8 @@ def main(argv=None) -> int:
     from moonrtx_tpu_torch import kernels
     from moonrtx_tpu_torch.app import headless
     from moonrtx_tpu_torch.config import RenderConfig
-    from moonrtx_tpu_torch.ops import (extract, march_shade, shadow_prefix,
-                                       shadow_scan)
+    from moonrtx_tpu_torch.ops import (blocked_sample, extract, march_shade,
+                                       shadow_prefix, shadow_scan)
     from moonrtx_tpu_torch.types import Observer
 
     # ---- 1. the card -----------------------------------------------------
@@ -1530,6 +1597,9 @@ def main(argv=None) -> int:
         fail(f"extract_level_windows launched "
              f"{counts_b['extract_level_windows']} times on the blocked "
              f"path, expected {K5_LAUNCHES_PER_POSE}")
+    if counts_b["blocked_sample"] != BLOCKED_SAMPLES:
+        fail(f"blocked_sample launched {counts_b['blocked_sample']} times "
+             f"for {BLOCKED_SAMPLES} samples, expected one a sample")
     if scene._accum_n != BLOCKED_SAMPLES:
         fail(f"the blocked path accumulated {scene._accum_n} samples")
     if not bool(torch.isfinite(scene._accum).all()):
@@ -1555,7 +1625,8 @@ def main(argv=None) -> int:
     if not (stats["mean"] < 0.5 and stats["p99"] <= 3
             and stats["over8"] < 0.005 and stats["hits"] >= 0.999):
         fail("the blocked frame disagrees with the march frame")
-    counts["extract_level_windows"] = counts_b["extract_level_windows"]
+    for name in PATH_KERNELS["blocked"]:
+        counts[name] = counts_b[name]
     calls = calls + calls_blocked
 
     # a single-level launch beside one advanced-indexing gather: the height
@@ -1595,7 +1666,8 @@ def main(argv=None) -> int:
              "shadow_factor": shadow_prefix.shadow_factor_plain,
              "march_shade": march_shade.march_shade_plain,
              "march_burst": march_shade.march_burst_plain,
-             "bounce_from_parts": shadow_scan.bounce_from_parts_plain}
+             "bounce_from_parts": shadow_scan.bounce_from_parts_plain,
+             "blocked_sample": blocked_sample.blocked_sample_plain}
     wrapper = kernels.wrappers()
     # launches to replay: every call of the frame (K2 once, for sample 0)
     picked: dict = {name: [] for name in KERNELS}
@@ -1678,6 +1750,16 @@ def main(argv=None) -> int:
               f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
               f"({entry['bound_by']}), library {entry['library_ms']}",
               flush=True)
+        if name == "blocked_sample":
+            dev_ms, n_ops = plain_device_ms(lambda: plain[name](**items[0]))
+            print(f"#   {name}: the plain version's device time "
+                  f"{dev_ms:.3f} ms a sample in {n_ops} device operations; "
+                  f"{blocked_sample.occupancy()} blocks of 128 threads an "
+                  f"SM; "
+                  f"{entry['ms']:.4f} ms per launch against a bound of "
+                  f"{entry['bound_ms']:.4f} ms "
+                  f"({entry['bound_ms'] / entry['ms']:.1%} of it reached)",
+                  flush=True)
         if len(passes) > 1:
             print(f"#   {name} by pass: " + ", ".join(
                 f"{kernel} {ms / n:.4f} ms" for kernel, ms in passes.items()),

@@ -8,10 +8,12 @@ and shadow|bounce maps through small private windows. The layout is the
 reference's, so every intermediate compares tensor for tensor with it.
 Two backends share the windows:
 
-* "blocked": march, shadow lookup and shading in plain torch ops on f32
-  windows, one accumulation sample per call (render_frame_blocked). Its
-  windows are cut one per block by K5 (ops.extract.extract_level_windows)
-  in three launches: heights, albedo (whole texels), shadow|bounce.
+* "blocked": march, shadow lookup and shading on f32 windows, one
+  accumulation sample per call (render_frame_blocked): one kernel launch
+  on the card (ops.blocked_sample), the plain torch functions below on
+  the CPU. Its windows are cut one per block by K5
+  (ops.extract.extract_level_windows) in three launches: heights, albedo
+  (whole texels), shadow|bounce.
 * "pallas": GROUP=8 horizontally adjacent blocks (an 8x128-pixel strip)
   make one strip of the march kernel (K2), fed from windows cut by K1
   straight into its packed layout, all samples in one burst.
@@ -48,6 +50,7 @@ from moonrtx_tpu_torch.engine.render import (
     shade_lambert,
     sun_disk_hit,
 )
+from moonrtx_tpu_torch.ops import blocked_sample as bs
 from moonrtx_tpu_torch.ops import extract as extract_ops
 from moonrtx_tpu_torch.ops import march_shade as mk
 from moonrtx_tpu_torch.ops import sampler
@@ -598,25 +601,12 @@ def render_frame_blocked(cache: WindowCache, org: WindowOrigins,
                          h: int, w: int, ah: int, aw: int, n_phi: int = 0,
                          n_coarse: int = 24) -> RenderOutput:
     """One accumulation sample from cached windows (the blocked backend's
-    per-frame path)."""
-    hit, t_hit, lat, lon, p = march_blocks(
-        cache, org, geom, h, w, jitter_t, n_coarse=n_coarse)
-
-    if shadow_windows is not None:
-        shadow, bounce = lookup_shadow_windows(shadow_windows, smap_params,
-                                               n_phi, p)
-    else:
-        shadow = torch.ones_like(t_hit)
-        bounce = None
-
-    pix_ang = 2.0 * basis.tan_half_fov / height
-    rgb_b = shade_blocks(cache, org, h, w, ah, aw, lat, lon, p, fp, shadow,
-                         geom=geom, t_hit=t_hit, pix_ang=pix_ang,
-                         bounce=bounce)
-    rgb, hitbuf = composite_blocks(rgb_b, hit, t_hit, p, height, width,
-                                   geom.dirs_scene, basis.eye, fp,
-                                   background=background)
-    return RenderOutput(rgb=rgb, hitbuf=hitbuf)
+    per-frame path): march_blocks, lookup_shadow_windows, shade_blocks and
+    composite_blocks, in one kernel launch on the card
+    (ops.blocked_sample)."""
+    return bs.blocked_sample(cache, org, geom, shadow_windows, smap_params,
+                             background, basis, fp, jitter_t, height, width,
+                             h, w, ah, aw, n_phi=n_phi, n_coarse=n_coarse)
 
 
 # ---- the march-kernel path ---------------------------------------------------

@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("extract", "resample", "shadow_prefix", "march_shade", "bounce")
+SOURCES = ("extract", "resample", "shadow_prefix", "march_shade", "bounce",
+           "blocked_sample")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -148,8 +149,8 @@ def recording():
 def wrappers() -> dict:
     """{name: wrapper} of every kernel wrapper; each carries an integer
     ``launches`` count, bumped only where it launches its kernel."""
-    from moonrtx_tpu_torch.ops import (extract, march_shade, shadow_prefix,
-                                       shadow_scan)
+    from moonrtx_tpu_torch.ops import (blocked_sample, extract, march_shade,
+                                       shadow_prefix, shadow_scan)
 
     return {
         "extract_group_windows": extract.extract_group_windows,
@@ -159,6 +160,7 @@ def wrappers() -> dict:
         "march_shade": march_shade.march_shade,
         "march_burst": march_shade.march_burst,
         "bounce_from_parts": shadow_scan.bounce_from_parts,
+        "blocked_sample": blocked_sample.blocked_sample,
     }
 
 

@@ -19,7 +19,10 @@ card's own); the burst kernel (samples 1..N-1 of an accumulation in one
 launch) gives the per-sample K2 loop's mean bit for bit and is within
 1e-4 of its plain version on a 1080p view of chip_smoke.py's map; the
 bounce kernels are within 1e-5 of their plain version except where the
-plain version's own ties flip (BOUNCE_TOL).
+plain version's own ties flip (BOUNCE_TOL); the blocked backend's sample
+kernel gives its plain version's image and hit buffer bit for bit, on a
+small view in every input variant it takes and on chip_smoke.py's 1080p
+view.
 """
 
 from datetime import datetime, timezone
@@ -351,7 +354,9 @@ def test_scene_renders_through_the_kernels(cuda):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     k5 = counts.pop("extract_level_windows")
-    assert k5 == 0 and all(v > 0 for v in counts.values()), counts
+    ks = counts.pop("blocked_sample")
+    assert k5 == 0 and ks == 0 and all(v > 0 for v in counts.values()), \
+        counts
     # sample 0 through K2, samples 1-3 in one burst kernel
     assert counts["march_shade"] == 1 and counts["march_burst"] == 1
     assert img.shape == (144, 256, 3) and img.max() > 0
@@ -369,6 +374,8 @@ def test_scene_renders_through_the_kernels(cuda):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["extract_level_windows"] == 3, counts
+    # one launch a sample
+    assert counts["blocked_sample"] == 4, counts
     assert counts["march_shade"] == 0 and counts["extract_group_windows"] == 0
     assert counts["march_burst"] == 0
     assert torch.isfinite(sb._accum).all()
@@ -411,10 +418,16 @@ def test_scene_renders_through_the_kernels(cuda):
 
 
 @pytest.fixture(scope="module")
-def burst_1080p(tmp_path_factory):
-    """The burst call of a cold 32-sample 1920x1080 view (16200 blocks of
-    128 rays) of the march path, recorded on the card, on chip_smoke.py's
-    synthetic 11520x23040 map (cached in a temporary directory)."""
+def synth_cache(tmp_path_factory):
+    """A cache directory for chip_smoke.py's synthetic 11520x23040 map,
+    shared by the 1080p fixtures, so the map is synthesized once."""
+    return str(tmp_path_factory.mktemp("cache"))
+
+
+def _smoke_scene(cache: str, backend: str, record):
+    """chip_smoke.py's 1920x1080 view at shadow accuracy 10 on its
+    synthetic 11520x23040 map, on the card, and what ``record(scene)``
+    returns, with the map's caches in ``cache``."""
     import os
 
     from moonrtx_tpu_torch.app import headless
@@ -425,7 +438,6 @@ def burst_1080p(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     kernels.build_all()
-    cache = str(tmp_path_factory.mktemp("cache"))
     mp = pytest.MonkeyPatch()
     mp.setenv("MOONRTX_TPU_CACHE", cache)
     mp.setattr(loader, "SYNTH_CACHE_DIR", cache)
@@ -433,16 +445,31 @@ def burst_1080p(tmp_path_factory):
         cfg = RenderConfig(
             observer=Observer(50.06, 19.94, 219),
             dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
-            width=1920, height=1080, shadow_accuracy=10, backend="pallas",
+            width=1920, height=1080, shadow_accuracy=10, backend=backend,
             synth_shape=(11520, 23040), downscale=1).validate()
         s = headless.build_scene(cfg, with_starmap=False)
         s.update_view()
-        with kernels.recording() as calls:
-            s.render(32)
+        got = record(s)
         torch.cuda.synchronize()
     finally:
         mp.undo()
     assert os.path.isdir(cache)
+    return s, got
+
+
+def _recorded(scene, n_samples: int) -> list:
+    with kernels.recording() as calls:
+        scene.render(n_samples)
+    return calls
+
+
+@pytest.fixture(scope="module")
+def burst_1080p(synth_cache):
+    """The burst call of a cold 32-sample 1920x1080 view (16200 blocks of
+    128 rays) of the march path, recorded on the card, on chip_smoke.py's
+    synthetic 11520x23040 map (cached in a temporary directory)."""
+    _, calls = _smoke_scene(synth_cache, "pallas",
+                            lambda s: _recorded(s, 32))
     bursts = [c for name, c in calls if name == "march_burst"]
     # K1 x3, K4 x2, K3, the bounce pyramid, K2
     assert len(bursts) == 1 and len(calls) == 9
@@ -757,7 +784,7 @@ def test_mesh_scene_on_card_matches_single_device(cuda):
     assert kernels.launch_counts() == {
         "extract_group_windows": 12, "extract_level_windows": 0,
         "resample_group_windows": 8, "shadow_factor": 4, "march_shade": 16,
-        "march_burst": 0, "bounce_from_parts": 1}
+        "march_burst": 0, "bounce_from_parts": 1, "blocked_sample": 0}
     from moonrtx_tpu_torch.data.synth import synthesize_moon
 
     elev, albedo = synthesize_moon(512, 1024, seed=7, n_craters=120)
@@ -870,3 +897,146 @@ def test_program_spans_have_no_device_copy(cuda):
     assert inner > 0
     assert rows["test.inner"]["device_us"] == pytest.approx(inner)
     assert rows["test.outer"]["device_us"] > rows["test.inner"]["device_us"]
+
+
+# ---- the blocked backend's sample in one launch (KS) ---------------------
+# The kernel against blocked_sample_plain on the card: bit for bit (it
+# follows torch's float32 arithmetic there: csrc/blocked_sample.cu), on a
+# small grid in each input variant the sample takes and on chip_smoke.py's
+# 1080p view.
+
+def _assert_sample_is_plain(call):
+    from moonrtx_tpu_torch.ops import blocked_sample as bs
+
+    n0 = bs.blocked_sample.launches
+    got = bs.blocked_sample(**call)
+    ref = bs.blocked_sample_plain(**call)
+    torch.cuda.synchronize()
+    assert bs.blocked_sample.launches == n0 + 1
+    hit = ref.hitbuf[..., 3] > 0
+    assert 0.2 < float(hit.float().mean()) < 0.9
+    assert float(ref.rgb[hit].max()) > 0.0
+    flips = int((hit != (got.hitbuf[..., 3] > 0)).sum())
+    d_rgb = float((got.rgb - ref.rgb).abs().max())
+    d_hb = float((got.hitbuf - ref.hitbuf).abs().max())
+    assert torch.equal(got.hitbuf, ref.hitbuf), (flips, d_hb)
+    assert torch.equal(got.rgb, ref.rgb), d_rgb
+
+
+@pytest.fixture(scope="module")
+def blocked_small():
+    """A small blocked-backend scene on the card (lunar-Lambert shading,
+    shadows, bounce light, eclipse and earthshine terms) and the two
+    sample calls of its render(2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kernels.build_all()
+    from moonrtx_tpu_torch.config import RenderConfig
+    from moonrtx_tpu_torch.data.synth import synthesize_moon
+    from moonrtx_tpu_torch.engine.scene import MoonScene
+    from moonrtx_tpu_torch.types import Observer
+
+    elev, albedo = synthesize_moon(360, 720, seed=5, n_craters=150)
+    rs = float(elev.max())
+    cfg = RenderConfig(
+        observer=Observer(50.06, 19.94, 219),
+        dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
+        width=256, height=144, shadow_accuracy=4, photometric="lunar",
+    ).validate()
+    s = MoonScene(cfg, (elev / rs).astype(np.float32), rs, albedo, None)
+    assert s.backend == "blocked"
+    s.update_view()
+    calls = [c for name, c in _recorded(s, 2) if name == "blocked_sample"]
+    torch.cuda.synchronize()
+    assert len(calls) == 2
+    sw = calls[0]["shadow_windows"]
+    assert sw.swin.shape[-1] == 96 and sw.swin.dtype == torch.float32
+    return s, calls
+
+
+@pytest.mark.parametrize("sample", [0, 1], ids=["jitter_0.5", "drawn"])
+@pytest.mark.parametrize("variant", [
+    "as_rendered", "no_shadows", "no_bounce", "packed_albedo",
+    "star_background", "lambert_no_earth", "no_eclipse",
+    "bf16_shadow_windows"])
+def test_blocked_sample_matches_plain_on_a_small_grid(blocked_small,
+                                                      variant, sample):
+    from torch_parity import BLOCKED_SAMPLE_VARIANTS, blocked_sample_variant
+
+    assert variant in BLOCKED_SAMPLE_VARIANTS
+    _, calls = blocked_small
+    _assert_sample_is_plain(blocked_sample_variant(calls[sample], variant))
+
+
+@pytest.fixture(scope="module")
+def blocked_1080p(synth_cache):
+    """The two sample calls of render(2) on the default path (backend
+    auto) of chip_smoke.py's 1080p view, recorded on the card."""
+    s, calls = _smoke_scene(synth_cache, "auto", lambda s: _recorded(s, 2))
+    assert s.backend == "blocked"
+    got = [c for name, c in calls if name == "blocked_sample"]
+    assert len(got) == 2 and got[0]["geom"].db.shape == (16200, 128, 3)
+    return got
+
+
+@pytest.mark.parametrize("sample", [0, 1], ids=["jitter_0.5", "drawn"])
+@pytest.mark.parametrize("variant", ["as_rendered", "no_shadows",
+                                     "no_bounce", "star_background"])
+def test_blocked_sample_matches_plain_at_1080p(blocked_1080p, variant,
+                                               sample):
+    from torch_parity import blocked_sample_variant
+
+    _assert_sample_is_plain(blocked_sample_variant(blocked_1080p[sample],
+                                                   variant))
+
+
+def test_blocked_frame_is_one_launch_a_sample(blocked_small):
+    """render_frame_blocked launches the kernel once a sample, and the
+    device work of the span scene.sample is that launch alone."""
+    import importlib.util
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from moonrtx_tpu_torch.ops import blocked_sample as bs
+
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "torch_frame_profile.py"
+    spec = importlib.util.spec_from_file_location("torch_frame_profile", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    s, _ = blocked_small
+    n = s._accum_n
+    n0 = bs.blocked_sample.launches
+    s.render(n + 3)
+    torch.cuda.synchronize()
+    assert bs.blocked_sample.launches == n0 + 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s.render(n + 4)
+        torch.cuda.synchronize()
+    spans, device, _ = tool.read_events(prof)
+    sample = [(a, b) for a, b, name in spans if name == "scene.sample"]
+    assert len(sample) == 1
+    a, b = sample[0]
+    inside = [name for _, _, name, t in device
+              if t is not None and a <= t <= b]
+    assert len(inside) == 1 and "blocked_sample_kernel" in inside[0], inside
+
+
+def test_blocked_sample_refuses_what_the_kernel_does_not_take(blocked_small):
+    from moonrtx_tpu_torch.ops import blocked_sample as bs
+
+    _, calls = blocked_small
+    call = calls[0]
+    geom = call["geom"]
+    wide = torch.empty(geom.db.shape[:-1] + (6,), device=geom.db.device)
+    strided = wide[..., :3]
+    strided.copy_(geom.db)
+    n0 = bs.blocked_sample.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        bs.blocked_sample(**dict(call, geom=geom._replace(db=strided)))
+    with pytest.raises(ValueError, match="cpu"):
+        bs.blocked_sample(**dict(call, fp=call["fp"]._replace(
+            rotation=call["fp"].rotation.cpu())))
+    assert bs.blocked_sample.launches == n0

@@ -10,6 +10,9 @@ Importing this module also pins PyTorch to one CPU thread and starts
 its thread pool (see ``_start_torch_threads``), so every test file that
 compares frames imports it.
 
+``blocked_sample_variant`` turns a recorded call of the blocked
+backend's sample into each input it takes besides a scene's own.
+
 ``shadow_hard_case``, ``resample_hard_case`` and ``extract_hard_case``
 are the one numpy generator of the inputs a wrong split of a kernel's
 work gets wrong (moonrtx_tpu_torch/hard_cases.py, which the card's smoke
@@ -130,3 +133,55 @@ def scan_self_noise(tex, alb_lum, sun, ang: float, h: int, w: int,
         jnp.float32(ang), C.MOON_RADIUS, interpret=True))
     noisy = np.concatenate([noisy, noisy[:, :shadow_scan.PHI_PAD]], axis=1)
     return np.asarray(smap), noisy
+
+
+def _packed_awin(cache):
+    """The same albedo windows in K1's packed channel-major layout."""
+    from moonrtx_tpu_torch.engine import blocked
+
+    nblk = cache.awin.shape[0]
+    awin = torch.movedim(cache.awin, 3, 2).reshape(
+        nblk // blocked.GROUP, blocked.GROUP * blocked.AWIN_H,
+        3 * blocked.AWIN_W)
+    return cache._replace(awin=awin.contiguous())
+
+
+def blocked_sample_variant(call, name: str) -> dict:
+    """A recorded call of ops.blocked_sample changed into one of
+    BLOCKED_SAMPLE_VARIANTS: the inputs the blocked backend's sample takes
+    besides those a scene renders with (its own call is "as_rendered").
+    The call has shadow windows with the bounce half, lunar-Lambert
+    shading and the Earth terms."""
+    from moonrtx_tpu_torch.engine import blocked
+
+    sw = call["shadow_windows"]
+    if name == "no_shadows":
+        return dict(call, shadow_windows=None)
+    if name == "no_bounce":
+        return dict(call, shadow_windows=sw._replace(
+            swin=sw.swin[..., :blocked.SWIN_W].contiguous()))
+    if name == "packed_albedo":
+        return dict(call, cache=_packed_awin(call["cache"]))
+    if name == "star_background":
+        g = torch.Generator().manual_seed(3)
+        bg = 0.05 * torch.rand((call["height"], call["width"], 3),
+                               generator=g)
+        return dict(call, background=bg.to(call["geom"].db.device))
+    if name == "lambert_no_earth":
+        return dict(call, fp=call["fp"]._replace(lunar_blend=None,
+                                                 earth=None))
+    if name == "no_eclipse":
+        earth = call["fp"].earth.clone()
+        earth[4] = 0.0              # the Earth's angular radius
+        return dict(call, fp=call["fp"]._replace(earth=earth))
+    if name == "bf16_shadow_windows":
+        return dict(call, shadow_windows=sw._replace(
+            swin=sw.swin.to(torch.bfloat16)))
+    assert name == "as_rendered", name
+    return call
+
+
+BLOCKED_SAMPLE_VARIANTS = ["as_rendered", "no_shadows", "no_bounce",
+                           "packed_albedo", "star_background",
+                           "lambert_no_earth", "no_eclipse",
+                           "bf16_shadow_windows"]

@@ -3,7 +3,9 @@
 the program's own spans (moonrtx_tpu_torch/utils/profiling.py).
 
     python3 tools/torch_frame_profile.py [--synth-shape 11520x23040]
-        [--backend pallas|blocked|reference]
+        [--backend pallas|blocked|reference] [--root CHECKOUT]
+    python3 tools/torch_frame_profile.py --cell blocked.held [--seed N]
+        [--root CHECKOUT]
 
 Builds chip_smoke.py's main-path scene (1920x1080, shadow accuracy 10,
 synthetic LOLA-sized int16 map) on the chosen backend: "pallas" (the
@@ -14,7 +16,17 @@ quantized map). A request is a steady cold view: the date moves by a day
 (new sun, so the shadow scan, the bounce pyramid and the pose windows are
 rebuilt), then the frame is rendered and copied to the host.
 
-Two views warm up untraced; the next five run under torch.profiler. It
+With ``--cell`` a request is instead one event of a session cell of
+BENCHMARK.json (blocked.held: a held Q/W step, a scrub step or a 2-px
+drag, each followed by Session.frame(1)), built and drawn by the
+benchmark's own harness (portbench/harness: the cell's configuration,
+maps and traffic, ``--seed`` drawing the events) after the mix's
+warm-up. ``--root`` runs the port of another checkout (a ``git archive``
+of another commit) under this checkout's harness, so two commits can be
+profiled in turns on one card.
+
+Two views (ten events) warm up untraced; the next five views (40 events)
+run under torch.profiler. It
 prints, per program span, the ranges, host ms, device ms and device idle
 ms per view: device work belongs to every span open when it was launched
 (its runtime launch, found by correlation id), idle time to the innermost
@@ -176,11 +188,65 @@ def span_table(spans, device, window) -> dict:
                 device_us=sum(e - s for s, e, *_ in device))
 
 
+def view_requests(backend: str, synth_shape: str):
+    """(request, traced requests, warm-up requests) of cold views of
+    chip_smoke.py's main-path scene on ``backend``."""
+    from moonrtx_tpu_torch.app import headless
+    from moonrtx_tpu_torch.config import RenderConfig
+    from moonrtx_tpu_torch.types import Observer
+
+    th, tw = (int(v) for v in synth_shape.split("x"))
+    cfg = RenderConfig(
+        observer=Observer(50.06, 19.94, 219),
+        dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
+        width=1920, height=1080, shadow_accuracy=10, backend=backend,
+        synth_shape=(th, tw), downscale=1).validate()
+    scene = headless.build_scene(cfg)
+    n = 32 if scene.backend == "pallas" else 8
+    print(f"# backend {backend} -> {scene.backend}; cold views of {n} "
+          "samples, the date a day apart")
+
+    def request():
+        scene.update_view(scene.dt_local + timedelta(days=1))
+        scene.render(n)
+
+    return request, 5, 2
+
+
+def cell_requests(cell: str, seed: int):
+    """(request, traced requests, warm-up requests) of the events of a
+    session cell, through the benchmark's harness: its program (the
+    scene and Session of the cell's configuration on its maps), its
+    warm-up, then the events its traffic draws from ``seed``."""
+    sys.path.insert(0, os.path.join(HERE, "portbench"))
+    from harness import program, spec, traffic
+
+    bench = spec.load_benchmark()
+    w = spec.workload(bench, cell)
+    cfg = spec.config(bench, w["config"])
+    mix = spec.mix(w["traffic"])
+    if mix["user"] != "session":
+        raise SystemExit(f"{cell} is not a session cell")
+    user = program.build(cfg, mix, program.load_maps(cfg), program.Spans())
+    print(f"# cell {cell}: backend {user.session.scene.backend}, events "
+          f"of {w['traffic']} drawn from seed {seed}, each then "
+          f"Session.frame({mix['samples']})")
+    for r in traffic.warmup(mix, traffic.parse_dt(cfg["start"])):
+        user.do(r)
+    stream = traffic.requests(mix, seed)
+    return (lambda: user.do(next(stream))), 40, 10
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--synth-shape", default="11520x23040")
     ap.add_argument("--backend", default="pallas",
                     choices=("pallas", "blocked", "reference"))
+    ap.add_argument("--cell", default=None,
+                    help="a session cell of BENCHMARK.json: its events")
+    ap.add_argument("--seed", type=int, default=2612000021)
+    ap.add_argument("--root", default=HERE,
+                    help="the checkout whose port runs")
     args = ap.parse_args(argv)
 
     import torch
@@ -191,35 +257,20 @@ def main(argv=None) -> int:
     out_dir = os.path.join(HERE, "chip_smoke_out")
     os.makedirs(out_dir, exist_ok=True)
     os.environ["MOONRTX_TPU_CACHE"] = os.path.join(out_dir, "cache")
-    sys.path.insert(0, HERE)
-    from moonrtx_tpu_torch.app import headless
-    from moonrtx_tpu_torch.config import RenderConfig
-    from moonrtx_tpu_torch.types import Observer
+    sys.path.insert(0, os.path.abspath(args.root))
     from moonrtx_tpu_torch.utils import profiling
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    print(f"# card: {card}")
-    th, tw = (int(v) for v in args.synth_shape.split("x"))
-    cfg = RenderConfig(
-        observer=Observer(50.06, 19.94, 219),
-        dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
-        width=1920, height=1080, shadow_accuracy=10, backend=args.backend,
-        synth_shape=(th, tw), downscale=1).validate()
-    scene = headless.build_scene(cfg)
-
-    n = 32 if scene.backend == "pallas" else 8
-    n_req = 5
-    print(f"# backend {args.backend} -> {scene.backend}; cold views of {n} "
-          "samples, the date a day apart")
-
-    def request():
-        scene.update_view(scene.dt_local + timedelta(days=1))
-        scene.render(n)
-
-    for _ in range(2):
+    print(f"# card: {card}; the port of {os.path.abspath(args.root)}")
+    if args.cell:
+        request, n_req, n_warm = cell_requests(args.cell, args.seed)
+    else:
+        request, n_req, n_warm = view_requests(args.backend,
+                                               args.synth_shape)
+    for _ in range(n_warm):
         request()
     torch.cuda.synchronize()
     before = profiling.counters()
