@@ -38,8 +38,9 @@ Phases, each fatal on failure:
    issue, and the blocks an SM holds), the plain
    version and, where one exists, a single library call computing the
    same function (or the stated half of it) from CUDA events;
-   the bound is computed from these inputs (bytes at 3.35 TB/s, operations
-   at 67 TFLOP/s float32, H100 SXM data sheet);
+   the bound is computed from these inputs by the benchmark's yardstick
+   (portbench/harness/roofline.py; a kernel with a roofline metric is
+   counted by that metric's ``count`` under portbench/metrics/);
    then the prefix scan (K3), the window resample (K4) and the window
    extraction (K1, K5) run on inputs made with numpy from a seed that a
    wrong split of their work would get wrong
@@ -126,51 +127,9 @@ import sys
 import threading
 import time
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-F32_FLOPS_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 SAMPLES = 32                   # accumulation samples of the march path
 BLOCKED_SAMPLES = 8            # one-sample frames of the blocked path
 
-# where each kernel lives, its __global__ functions (one per pass of a
-# launch), and which TPU kernel it replaces
-KERNELS = {
-    "extract_group_windows": dict(
-        source="moonrtx_tpu_torch/csrc/extract.cu",
-        kernel=("extract_group_kernel",),
-        replaces="moonrtx_tpu/ops/extract.py:372"),
-    "extract_level_windows": dict(
-        source="moonrtx_tpu_torch/csrc/extract.cu",
-        kernel=("extract_level_kernel",),
-        replaces="moonrtx_tpu/ops/extract.py:239"),
-    "march_shade": dict(
-        source="moonrtx_tpu_torch/csrc/march_shade.cu",
-        kernel=("march_kernel",),
-        replaces="moonrtx_tpu/ops/pallas_march.py:633"),
-    # no pallas_call: the JAX package's burst is a jitted fori_loop
-    "march_burst": dict(
-        source="moonrtx_tpu_torch/csrc/march_shade.cu",
-        kernel=("burst_kernel",),
-        replaces="moonrtx_tpu/engine/blocked.py:940"),
-    "shadow_factor": dict(
-        source="moonrtx_tpu_torch/csrc/shadow_prefix.cu",
-        kernel=("shadow_chunk_max_kernel", "shadow_factor_kernel"),
-        replaces="moonrtx_tpu/ops/shadow_prefix.py:120"),
-    "resample_group_windows": dict(
-        source="moonrtx_tpu_torch/csrc/resample.cu",
-        kernel=("resample_kernel",),
-        replaces="moonrtx_tpu/ops/extract.py:516"),
-    # no pallas_call: the JAX package's pyramid is jnp code XLA fuses
-    "bounce_from_parts": dict(
-        source="moonrtx_tpu_torch/csrc/bounce.cu",
-        kernel=("bounce_pyramid_kernel", "bounce_collapse_kernel"),
-        replaces="moonrtx_tpu/ops/shadow_scan.py:447"),
-    # no pallas_call: the JAX package's blocked sample is jnp code XLA
-    # fuses
-    "blocked_sample": dict(
-        source="moonrtx_tpu_torch/csrc/blocked_sample.cu",
-        kernel=("blocked_sample_kernel",),
-        replaces="moonrtx_tpu/engine/blocked.py:706"),
-}
 # the kernels each main path must launch
 PATH_KERNELS = {
     "pallas": ("extract_group_windows", "march_shade", "march_burst",
@@ -222,6 +181,10 @@ MESH_BAND_BUDGET_GB = 0.01     # 8c: small enough to band the render level
 # level, 1440 rows, is also the scan's level, which stays replicated by
 # design: engine/scene.py _plan_bands)
 MESH_BAND_ZOOM = 0.35
+
+
+BENCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "portbench")
 
 
 def fail(msg: str) -> None:
@@ -293,38 +256,6 @@ def device_ms(fn, passes: tuple, reps: int,
     return sum(by_pass.values()), by_pass
 
 
-def touched_bytes(levels, lvl_idx, r0, c0, wh: int, ww: int) -> int:
-    """Bytes of the distinct texels that per-block (wh, ww) windows cut
-    from their levels (a texel read by several windows counts once, with
-    all its channels). ``levels`` is one pyramid or several (maps)."""
-    import torch
-
-    if not isinstance(levels[0], torch.Tensor):
-        return sum(touched_bytes(m, lvl_idx, r0, c0, wh, ww)
-                   for m in levels)
-    lvl_idx = torch.clamp(lvl_idx, 0, len(levels) - 1)
-    total = 0
-    for k, lvl in enumerate(levels):
-        sel = lvl_idx == k
-        if not bool(sel.any()):
-            continue
-        h, w = lvl.shape[0], lvl.shape[1]
-        rr = torch.clamp(r0[sel].long(), 0, h - 1)
-        cc = torch.clamp(c0[sel].long(), 0, w - 1)
-        diff = torch.zeros((h + 1, w + 1), dtype=torch.int32,
-                           device=lvl.device)
-        ones = torch.ones_like(rr, dtype=torch.int32)
-        r1 = torch.clamp(rr + wh, max=h)
-        c1 = torch.clamp(cc + ww, max=w)
-        for ri, ci, sign in ((rr, cc, 1), (rr, c1, -1), (r1, cc, -1),
-                             (r1, c1, 1)):
-            diff.index_put_((ri, ci), sign * ones, accumulate=True)
-        cover = diff.cumsum(0).cumsum(1)[:h, :w] > 0
-        total += int(cover.sum()) * lvl.element_size() * (
-            lvl.shape[2] if lvl.ndim == 3 else 1)
-    return total
-
-
 def frame_diff(img_a, img_b, hit_a, hit_b) -> dict:
     """Per-pixel max |d| statistics of two uint8 frames and the hit-flag
     agreement."""
@@ -341,10 +272,6 @@ def within_frame_bounds(st: dict) -> bool:
             and st["hits"] >= 0.999)
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def launches_per_call(name: str, call: dict) -> dict | None:
     """Launches of each pass in one call of a wrapper that launches a pass
     more than once: the bounce pyramid's kernel once a bounce, its
@@ -359,91 +286,62 @@ def launches_per_call(name: str, call: dict) -> dict | None:
                 *call["hs"].shape)}
 
 
-def bound_of(name: str, call: dict, out) -> tuple[float, str]:
+def roofline():
+    """The benchmark's yardstick, portbench/harness/roofline.py: the card's
+    peaks and the byte counts every bound shares."""
+    if BENCH not in sys.path:
+        sys.path.insert(0, BENCH)              # the metrics' ``harness``
+    from harness import roofline as yardstick
+
+    return yardstick
+
+
+def metric_counts() -> dict:
+    """{wrapper: count(call) -> (bytes, float32 operations)} of every
+    kernel with a roofline metric, loaded from its
+    portbench/metrics/<x>.roofline.<y>.py."""
+    import glob
+    import importlib.util
+
+    roofline()
+    counts = {}
+    for path in sorted(glob.glob(os.path.join(BENCH, "metrics",
+                                              "*.roofline.*.py"))):
+        spec = importlib.util.spec_from_file_location(
+            os.path.basename(path)[:-3].replace(".", "_"), path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        counts[mod.WRAPPER] = mod.count
+    return counts
+
+
+def bound_of(name: str, call: dict, out, counts: dict) -> tuple[float, str]:
     """(least milliseconds, "bytes" or "operations") for one launch on
     these inputs: each input byte read once, each output byte written
-    once; operations at the float32 peak."""
-    if name == "extract_group_windows":
-        by = touched_bytes(call["map_levels"], call["lvl_idx"], call["r0"],
-                           call["c0"], call["wh"], call["ww"])
-        by += nbytes(call["lvl_idx"], call["r0"], call["c0"], out)
-        ops = 2 * out.numel()                       # decode multiply + add
+    once; operations at the float32 peak. ``counts``: metric_counts();
+    the kernels without a roofline metric (K3, K4, K5) are counted
+    here."""
+    rl = roofline()
+    if name in counts:
+        by, ops = counts[name](call)
     elif name == "extract_level_windows":
-        by = touched_bytes(call["levels"], call["lvl_idx"], call["r0"],
-                           call["c0"], call["wh"], call["ww"])
-        by += nbytes(call["lvl_idx"], call["r0"], call["c0"], out)
+        by = rl.touched_bytes(call["levels"], call["lvl_idx"], call["r0"],
+                              call["c0"], call["wh"], call["ww"])
+        by += rl.nbytes(call["lvl_idx"], call["r0"], call["c0"], out)
         ops = 2 * out.numel()                       # decode multiply + add
     elif name == "resample_group_windows":
-        by = touched_bytes(call["levels"], call["lvl_idx"], call["r0"],
-                           call["c0"], call["wh"], call["ww"])
-        by += nbytes(call["lvl_idx"], call["r0"], call["c0"], call["wy"],
-                     call["wx"], out)
+        by = rl.touched_bytes(call["levels"], call["lvl_idx"], call["r0"],
+                              call["c0"], call["wh"], call["ww"])
+        by += rl.nbytes(call["lvl_idx"], call["r0"], call["c0"], call["wy"],
+                        call["wx"], out)
         nblk = call["wy"].shape[0]
         # decode + mean + residual per window texel, ~20 per sample
         ops = 4 * nblk * call["wh"] * call["ww"] + 20 * call["wy"].numel()
-    elif name == "shadow_factor":
-        by = nbytes(call["hs"], call["st"], call["ct"], out)
+    else:  # shadow_factor
+        by = rl.nbytes(call["hs"], call["st"], call["ct"], out)
         ops = 40 * call["hs"].numel()               # scan step + atan2
-    elif name == "bounce_from_parts":
-        # portbench/metrics/bounce.roofline.view.py's count: hs, factor,
-        # alb_s and the map once, each coarser level's inputs once, the
-        # plain version's operations a cell of each level and bounce
-        by, ops = bounce_count(call)
-    elif name == "blocked_sample":
-        # portbench/metrics/sample.roofline.step.py's count
-        by, ops = sample_count(call, out)
-    elif name == "march_burst":
-        # rays known live from sample 0's hits: K2's 360 flops a ray and
-        # 400 a hit for each warm sample; params, chord bounds, jitters,
-        # sample 0's planes and the mean once; the windows of the strips
-        # with a hit in sample 0 once
-        hit = call["f_prev"] > 0.5
-        ns = hit.shape[0]
-        n_hit = int(hit.reshape(ns, -1).amax(dim=1).sum())
-        by = nbytes(call["params"], call["jitters"][:call["n_samples"]],
-                    call["r"], call["g"], call["b"], call["t_prev"],
-                    call["f_prev"], *out)
-        if call["h_bound"] is not None:
-            by += nbytes(call["h_bound"])
-        by += nbytes(call["scal"], call["hwin"], call["awin"],
-                     call["swin"]) * n_hit // ns
-        ops = (call["n_samples"] - 1) * 760 * int(hit.sum())
-    else:  # march_shade
-        act = call["active"].reshape(call["active"].shape[0], -1)
-        live = act.amax(dim=1) > 0.5                # strips with a live ray
-        hit = out[3].reshape(out[3].shape[0], -1).amax(dim=1) > 0.5
-        n_live, n_hit = int(live.sum()), int(hit.sum())
-        ns = act.shape[0]
-        rays = [call[k] for k in ("dbx", "dby", "dbz", "t_enter", "t_end",
-                                  "active")]
-        if call["t_prev"] is not None:
-            rays += [call["t_prev"], call["f_prev"]]
-        by = nbytes(call["params"], *rays, *out)
-        by += (nbytes(call["scal"]) + nbytes(call["hwin"])) * n_live // ns
-        by += (nbytes(call["awin"]) + nbytes(call["swin"])) * n_hit // ns
-        # >= 6 field evaluations per ray (warm bracket + refinement), ~60
-        # flops each, plus ~400 flops of normal and shading per hit ray
-        ops = 360 * act.numel() + 400 * int((out[3] > 0.5).sum())
-    t_bytes = by / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    t_bytes, t_ops = rl.least_ms(by, 0), rl.least_ms(0, ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def sample_count(call: dict, out) -> tuple[int, int]:
-    """(bytes, float32 operations) of a blocked sample's least time: the
-    count of portbench/metrics/sample.roofline.step.py, loaded from it."""
-    import importlib.util
-
-    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "portbench")
-    if bench not in sys.path:
-        sys.path.insert(0, bench)              # its ``harness`` import
-    spec = importlib.util.spec_from_file_location(
-        "sample_roofline_step",
-        os.path.join(bench, "metrics", "sample.roofline.step.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.count(call, out)
 
 
 def plain_device_ms(fn) -> tuple[float, int]:
@@ -463,25 +361,6 @@ def plain_device_ms(fn) -> tuple[float, int]:
     us = [ev.time_range.elapsed_us() for ev in prof.events()
           if ev.device_type == torch.autograd.DeviceType.CUDA]
     return sum(us) / 1e3, len(us)
-
-
-def bounce_count(call: dict) -> tuple[int, int]:
-    """(bytes, float32 operations) of the bounce pyramid's least time
-    (portbench/metrics/bounce.roofline.view.py holds the same count)."""
-    from moonrtx_tpu_torch.ops import shadow_scan
-
-    n_theta, n_phi = call["hs"].shape
-    passes = 2 if call["n_bounces"] >= 2 else 1
-    cells = [(n_theta >> k) * (n_phi >> k) for k in
-             range(shadow_scan.bounce_levels(n_theta, n_phi))]
-    n0 = cells[0]
-    by = 4 * n0 * 4 + 4 * sum(cells[1:]) * (2 + passes)
-    # a cell of a level: 8 sectors of 15, blur and h_blk 12; the collapse
-    # 104 where a coarser level exists; decimation 11 on coarser levels;
-    # level 0's sum 18, its n.l 20, the second bounce's product and sum 2
-    per_bounce = (sum(cells) * 132 + sum(cells[:-1]) * 104
-                  + sum(cells[1:]) * 11 + n0 * 18)
-    return by, passes * per_bounce + n0 * 20 + (passes - 1) * n0 * 2
 
 
 def library_call(name: str, call: dict):
@@ -1024,7 +903,6 @@ def mesh_phase(cfg, img3, hit3, card: str, out_dir: str) -> None:
     from moonrtx_tpu_torch.app.session import Session
     from moonrtx_tpu_torch.data.features import load_moon_features
     from moonrtx_tpu_torch.engine import scene as scene_mod
-    from moonrtx_tpu_torch.ops import extract, march_shade, shadow_prefix
     from moonrtx_tpu_torch.parallel import make_mesh
 
     def say(msg: str) -> None:
@@ -1043,19 +921,15 @@ def mesh_phase(cfg, img3, hit3, card: str, out_dir: str) -> None:
         real_log(name, **kw)
 
     scene_mod.log_event = logged
-    plain = {"extract_group_windows": extract.extract_group_windows_plain,
-             "resample_group_windows": extract.resample_group_windows_plain,
-             "shadow_factor": shadow_prefix.shadow_factor_plain,
-             "march_shade": march_shade.march_shade_plain}
-    wrapper = kernels.wrappers()
+    declared = kernels.registered()
 
     def hold(what: str, name: str, call: dict) -> None:
-        got = wrapper[name](**call)
-        ref = plain[name](**call)
+        k = declared[name]
+        got = k.wrapper(**call)
+        ref = k.plain(**call)
         torch.cuda.synchronize()
         checks = compare(name, call, got, ref)
-        ms, _ = device_ms(lambda: wrapper[name](**call),
-                          KERNELS[name]["kernel"], 30)
+        ms, _ = device_ms(lambda: k.wrapper(**call), k.passes, 30)
         say(f"{name} at {what}: " + ", ".join(
             f"{w} max |err| {e:.3g} (tolerance {t:.3g})"
             for w, e, t in checks) + f"; {ms:.4f} ms a launch (device, "
@@ -1489,8 +1363,8 @@ def main(argv=None) -> int:
     from moonrtx_tpu_torch import kernels
     from moonrtx_tpu_torch.app import headless
     from moonrtx_tpu_torch.config import RenderConfig
-    from moonrtx_tpu_torch.ops import (blocked_sample, extract, march_shade,
-                                       shadow_prefix, shadow_scan)
+    from moonrtx_tpu_torch.ops import (blocked_sample, extract, shadow_prefix,
+                                       shadow_scan)
     from moonrtx_tpu_torch.types import Observer
 
     # ---- 1. the card -----------------------------------------------------
@@ -1501,6 +1375,10 @@ def main(argv=None) -> int:
 
     # ---- 2. build ----------------------------------------------------------
     kernels.build_all()
+    # every kernel wrapper's declaration: its source, its __global__
+    # functions (one per pass of a launch), its plain version and the
+    # reference function it replaces
+    declared = kernels.registered()
     print(f"# build: {kernels.build_seconds:.2f} s for "
           f"{len(kernels.SOURCES)} sources", flush=True)
     for src, log in kernels.build_log.items():
@@ -1639,7 +1517,7 @@ def main(argv=None) -> int:
                r0=hcall["r0"][sel].contiguous(),
                c0=hcall["c0"][sel].contiguous())
     k5_one, _ = device_ms(lambda: extract.extract_level_windows(**one),
-                          KERNELS["extract_level_windows"]["kernel"], 30)
+                          declared["extract_level_windows"].passes, 30)
     lib_one = cuda_ms(library_call("extract_level_windows", one), 20)
     print(f"# extract_level_windows on the {int(sel.sum())} level-0 height "
           f"blocks alone: kernel {k5_one:.4f} ms, one advanced-indexing "
@@ -1653,24 +1531,18 @@ def main(argv=None) -> int:
                r0=hcall["r0"][sel].contiguous(),
                c0=hcall["c0"][sel].contiguous())
     k1_one, _ = device_ms(lambda: extract.extract_group_windows(**one),
-                          KERNELS["extract_group_windows"]["kernel"], 30)
+                          declared["extract_group_windows"].passes, 30)
     lib_one = cuda_ms(library_call("extract_group_windows", one), 20)
     print(f"# extract_group_windows on {sel.numel()} level-0 height blocks "
           f"alone: kernel {k1_one:.4f} ms, one advanced-indexing gather (no "
           f"decode) {lib_one:.4f} ms", flush=True)
 
     # ---- 4. each kernel against its plain version, and its times -------
-    plain = {"extract_group_windows": extract.extract_group_windows_plain,
-             "extract_level_windows": extract.extract_level_windows_plain,
-             "resample_group_windows": extract.resample_group_windows_plain,
-             "shadow_factor": shadow_prefix.shadow_factor_plain,
-             "march_shade": march_shade.march_shade_plain,
-             "march_burst": march_shade.march_burst_plain,
-             "bounce_from_parts": shadow_scan.bounce_from_parts_plain,
-             "blocked_sample": blocked_sample.blocked_sample_plain}
+    plain = {name: k.plain for name, k in declared.items()}
     wrapper = kernels.wrappers()
+    counts_of = metric_counts()
     # launches to replay: every call of the frame (K2 once, for sample 0)
-    picked: dict = {name: [] for name in KERNELS}
+    picked: dict = {name: [] for name in declared}
     for name, call in calls:
         picked[name].append(call)
     report = []
@@ -1681,7 +1553,7 @@ def main(argv=None) -> int:
         errs = {}       # output -> (error, tolerance) nearest its limit
         max_err = 0.0   # the main output's largest error over the launches
         bound_ops = 0.0
-        passes = dict.fromkeys(KERNELS[name]["kernel"], 0.0)
+        passes = dict.fromkeys(declared[name].passes, 0.0)
         for call in items:
             got = wrapper[name](**call)
             ref = plain[name](**call)
@@ -1692,9 +1564,9 @@ def main(argv=None) -> int:
                 err0, tol0 = errs.get(what, (0.0, tol))
                 if err * tol0 >= err0 * tol:
                     errs[what] = (err, tol)
-            b_ms, b_by = bound_of(name, call, got)
+            b_ms, b_by = bound_of(name, call, got, counts_of)
             k_ms, by_pass = device_ms(lambda: wrapper[name](**call),
-                                      KERNELS[name]["kernel"], 30,
+                                      declared[name].passes, 30,
                                       launches_per_call(name, call))
             for kernel, ms in by_pass.items():
                 passes[kernel] += ms
@@ -1709,7 +1581,7 @@ def main(argv=None) -> int:
                       f"levels, {got.shape[0]} blocks: {k_ms:.4f} ms, bound "
                       f"{b_ms:.4f} ms, plain {p_ms:.3f} ms; the blocks read "
                       f"{reread / 1e6:.1f} MB of windows in all, "
-                      f"{reread / HBM_BYTES_PER_S * 1e3:.4f} ms at the "
+                      f"{roofline().least_ms(reread, 0):.4f} ms at the "
                       f"device-memory rate", flush=True)
             if name in ("extract_group_windows", "extract_level_windows"):
                 maps = call.get("map_levels", call.get("levels"))
@@ -1733,8 +1605,9 @@ def main(argv=None) -> int:
             del got, ref
         n = len(items)
         entry = dict(
-            name=name, route="cuda", source=KERNELS[name]["source"],
-            replaces=KERNELS[name]["replaces"], launches=counts[name],
+            name=name, route="cuda",
+            source=f"moonrtx_tpu_torch/csrc/{declared[name].source}.cu",
+            replaces=declared[name].replaces, launches=counts[name],
             max_abs_err=max_err, ms=tot["ms"] / n,
             plain_ms=tot["plain_ms"] / n, bound_ms=tot["bound_ms"] / n,
             bound_by=("operations" if bound_ops > 0.5 * tot["bound_ms"]

@@ -11,14 +11,9 @@ It carries the headless render path: ``app.headless.build_scene`` ->
 one-bounce pyramid, per-block windows, accumulation) -> ``display``,
 through the three backends of the reference: the windowed "blocked"
 backend (the default), the march-kernel "pallas" backend and the gather
-"reference" backend. Its five hand-written Hopper kernels live in
-``csrc/``, each beside its plain PyTorch version in ``ops/``:
-
-* ``ops.extract.extract_group_windows``   (csrc/extract.cu)
-* ``ops.extract.extract_level_windows``   (csrc/extract.cu)
-* ``ops.extract.resample_group_windows``  (csrc/resample.cu)
-* ``ops.shadow_prefix.shadow_factor``     (csrc/shadow_prefix.cu)
-* ``ops.march_shade.march_shade``         (csrc/march_shade.cu)
+"reference" backend. Its hand-written Hopper kernels live in ``csrc/``;
+each wrapper in ``ops/`` is declared beside its plain PyTorch version
+(``kernels.register``), and ``kernels.registered()`` lists them.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (moonrtx_tpu_torch.device). The reference's single-device entry points

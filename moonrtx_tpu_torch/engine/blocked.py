@@ -749,18 +749,20 @@ def _burst_core(packed: PackedWindows, smap_params, background, maxmap,
                 basis: CameraBasis, fp: FrameParams, jitters, height: int,
                 width: int, h: int, w: int, h_min: float, ah: int, aw: int,
                 n_samples: int, n_coarse: int, use_shadow: bool,
-                hbound=None):
+                hbound=None, geom0: Optional[RayGeom] = None):
     """N jittered accumulation samples: sample 0's rays (with the image-
     order directions the sun-disk pass needs) through the march kernel,
     then samples 1..N-1, warm-started from the previous sample's hits,
     with their rays and the running mean in one burst kernel
-    (ops.march_shade.march_burst). Returns (rgb_mean, hitbuf of sample
-    0)."""
+    (ops.march_shade.march_burst). geom0: sample 0's rays where the
+    caller has built them (jitters[0], the chord bound hbound), else built
+    here. Returns (rgb_mean, hitbuf of sample 0)."""
     ob = mat3t_apply(fp.rotation, basis.eye)
     params = _kernel_params(ob, fp, smap_params, use_shadow,
                             2.0 * basis.tan_half_fov / height, ah, aw)
-    geom0 = block_rays(basis, fp.rotation, jitters[0], height, width,
-                       h_min, maxmap=maxmap, h_bound=hbound)
+    if geom0 is None:
+        geom0 = block_rays(basis, fp.rotation, jitters[0], height, width,
+                           h_min, maxmap=maxmap, h_bound=hbound)
     ns = geom0.db.shape[0] // GROUP
     dbx, dby, dbz = (geom0.db[..., i].reshape(ns, GROUP, BLOCK)
                      for i in range(3))
@@ -832,7 +834,7 @@ def render_pose_pallas(mips, albedo_mips, slope_maps, smap, smap_params,
     rgb, hitbuf = _burst_core(packed, smap_params, background, maxmap,
                               basis, fp, jitters, height, width, h, w,
                               h_min, ah, aw, n_samples, n_coarse,
-                              use_shadow, hbound=geom0.h_bound)
+                              use_shadow, geom0=geom0)
     return (rgb, hitbuf, org, cache, hwin_p, awin_p, swin_p, scal,
             geom0.h_bound)
 
@@ -878,7 +880,7 @@ def render_timestep_pallas(smap, smap_params, bmap, cache: WindowCache,
     rgb, hitbuf = _burst_core(packed, smap_params, background, maxmap,
                               basis, fp, jitters, height, width, h, w,
                               h_min, ah, aw, n_samples, n_coarse, True,
-                              hbound=geom0.h_bound)
+                              geom0=geom0)
     return rgb, hitbuf, swin_p, scal
 
 

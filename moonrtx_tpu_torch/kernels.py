@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels (csrc/*.cu).
+"""Build, declare and launch the port's hand-written CUDA kernels
+(csrc/*.cu).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ctypes (no PyTorch headers, so a
@@ -11,29 +12,43 @@ source change rebuilds and an unchanged tree reuses the build.
 plain PyTorch versions and the JAX reference compute them (window
 extraction must be bit-exact, and the march's brackets follow the same
 roundings as its plain version).
+
+A kernel wrapper (a function of ops/) is declared once, where it is
+defined, with ``register``: its source, its C entry point and argument
+types, its ``__global__`` functions, its plain version and the reference
+function it replaces. It launches through ``launch``, the one place that
+picks the device and stream, checks the entry point's return code, counts
+the launch (the counter ``launch.<wrapper>`` of utils/profiling) and
+hands the wrapper's arguments to every active ``recording``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
+import importlib
 import os
+import pkgutil
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import torch
 
+from moonrtx_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("extract", "resample", "shadow_prefix", "march_shade", "bounce",
-           "blocked_sample")
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
+COUNTER = "launch."    # a wrapper's launches: profiling counter COUNTER+name
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -101,36 +116,92 @@ def lib(name: str):
     return build_all()[name]
 
 
-def entry(name: str, symbol: str, args_struct):
-    """The C entry point ``int symbol(const Args*, cudaStream_t)`` of a
-    kernel library, with its ctypes signature declared."""
-    fn = getattr(lib(name), symbol)
-    fn.argtypes = [ctypes.POINTER(args_struct), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+@functools.cache
+def entry(source: str, symbol: str, argtypes: tuple,
+          restype=ctypes.c_int):
+    """The C function ``symbol`` of csrc/<source>.cu's library, with its
+    ctypes signature declared once."""
+    fn = getattr(lib(source), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
     return fn
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+class Kernel(NamedTuple):
+    """A kernel wrapper's declaration (``register``)."""
+
+    wrapper: Callable
+    source: str        # csrc/<source>.cu
+    entry: str         # its C entry point ``int entry(args..., stream)``
+    argtypes: tuple    # the entry point's arguments before the stream
+    passes: tuple      # the __global__ functions one launch runs
+    plain: Callable    # the plain PyTorch version, the CPU path
+    replaces: str      # the reference function it stands for
 
 
-def check(name: str, rc: int) -> None:
-    """Raise if a kernel's C entry point reported a CUDA error."""
+_registry: dict = {}   # wrapper name -> Kernel
+
+
+def register(source: str, entry: str, args, passes: tuple, plain,
+             replaces: str):
+    """Declare the decorated function a kernel wrapper (returned as it
+    is). ``args``: the ctypes Structure its entry point takes by pointer,
+    or the tuple of ctypes types it takes by value."""
+    if isinstance(args, type) and issubclass(args, ctypes.Structure):
+        argtypes = (ctypes.POINTER(args),)
+    else:
+        argtypes = tuple(args)
+
+    def declare(fn):
+        _registry[fn.__name__] = Kernel(fn, source, entry, argtypes,
+                                        passes, plain, replaces)
+        profiling.count(COUNTER + fn.__name__, 0)
+        return fn
+
+    return declare
+
+
+@functools.cache
+def _import_ops() -> None:
+    from moonrtx_tpu_torch import ops
+
+    for m in pkgutil.iter_modules(ops.__path__):
+        importlib.import_module(f"{ops.__name__}.{m.name}")
+
+
+def registered() -> dict:
+    """{wrapper name: Kernel} of every kernel wrapper; imports every module
+    of ops/ once, so each has declared its own."""
+    _import_ops()
+    return dict(_registry)
+
+
+def wrappers() -> dict:
+    """{name: wrapper} of every kernel wrapper."""
+    return {name: k.wrapper for name, k in registered().items()}
+
+
+def launch(wrapper, args, on: torch.Tensor, call: dict) -> None:
+    """Launch ``wrapper``'s kernel on ``on``'s device and current stream:
+    ``args`` its argument struct, or the tuple of its arguments by value.
+    Raises if the entry point reports a CUDA error; then counts the launch
+    and hands ``call`` (the wrapper's arguments by name) to every active
+    ``recording``."""
+    name = wrapper.__name__
+    k = _registry[name]
+    fn = entry(k.source, k.entry, k.argtypes + (ctypes.c_void_p,))
+    if isinstance(args, ctypes.Structure):
+        args = (ctypes.byref(args),)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(on.device).cuda_stream)
+    with torch.cuda.device(on.device):
+        rc = fn(*args, stream)
     if rc != 0:
-        msg = lib(name).mrtx_error_string(rc).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({rc})")
-
-
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def launched(wrapper, call: dict) -> None:
-    """Count one launch of ``wrapper``'s kernel; ``call`` (the wrapper's
-    arguments by name) goes to every active ``recording``."""
-    wrapper.launches += 1
+        msg = lib(k.source).mrtx_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} ({k.source}.cu) failed: "
+                           f"{msg} ({rc})")
+    profiling.count(COUNTER + name)
     for calls in _recorders:
-        calls.append((wrapper.__name__, call))
+        calls.append((name, call))
 
 
 @contextlib.contextmanager
@@ -146,28 +217,13 @@ def recording():
         _recorders.remove(calls)
 
 
-def wrappers() -> dict:
-    """{name: wrapper} of every kernel wrapper; each carries an integer
-    ``launches`` count, bumped only where it launches its kernel."""
-    from moonrtx_tpu_torch.ops import (blocked_sample, extract, march_shade,
-                                       shadow_prefix, shadow_scan)
-
-    return {
-        "extract_group_windows": extract.extract_group_windows,
-        "extract_level_windows": extract.extract_level_windows,
-        "resample_group_windows": extract.resample_group_windows,
-        "shadow_factor": shadow_prefix.shadow_factor,
-        "march_shade": march_shade.march_shade,
-        "march_burst": march_shade.march_burst,
-        "bounce_from_parts": shadow_scan.bounce_from_parts,
-        "blocked_sample": blocked_sample.blocked_sample,
-    }
-
-
 def reset_launch_counts() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
+    profiling.reset(COUNTER)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """{wrapper name: launches of its kernel} of every kernel wrapper, 0
+    for one that never launched; a launch counts only on the card."""
+    names = registered()             # first: its imports add the counters
+    c = profiling.counters()
+    return {name: c[COUNTER + name] for name in names}

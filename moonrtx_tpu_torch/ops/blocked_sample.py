@@ -151,6 +151,11 @@ def _check(ins: dict, dev, contiguous: bool) -> None:
                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+# no pallas_call: the JAX package's blocked sample is jnp code XLA fuses
+@kernels.register("blocked_sample", "mrtx_blocked_sample", _SampleArgs,
+                  passes=("blocked_sample_kernel",),
+                  plain=blocked_sample_plain,
+                  replaces="moonrtx_tpu/engine/blocked.py:706")
 def blocked_sample(cache, org, geom, shadow_windows, smap_params, background,
                    basis, fp, jitter_t, height: int, width: int, h: int,
                    w: int, ah: int, aw: int, n_phi: int = 0,
@@ -213,20 +218,11 @@ def blocked_sample(cache, org, geom, shadow_windows, smap_params, background,
     a.n_coarse, a.n_bisect = n_coarse, N_BISECT
     a.height, a.width = height, width
     a.nblk = (height // BLOCK_H) * (width // BLOCK_W)
-    with torch.cuda.device(dev):
-        rc = kernels.entry("blocked_sample", "mrtx_blocked_sample",
-                           _SampleArgs)(ctypes.byref(a),
-                                        kernels.stream_of(rgb))
-    kernels.check("blocked_sample", rc)
-    kernels.launched(blocked_sample, call)
+    kernels.launch(blocked_sample, a, rgb, call)
     return RenderOutput(rgb=rgb, hitbuf=hitbuf)
-
-
-blocked_sample.launches = 0
 
 
 def occupancy() -> int:
     """Blocks of the kernel that one SM holds at once (on the card)."""
-    fn = kernels.lib("blocked_sample").mrtx_blocked_sample_occupancy
-    fn.restype = ctypes.c_int
-    return fn()
+    return kernels.entry("blocked_sample", "mrtx_blocked_sample_occupancy",
+                         ())()

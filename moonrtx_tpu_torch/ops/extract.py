@@ -138,13 +138,13 @@ class _ExtractArgs(ctypes.Structure):
 ROWS_PER_THREAD = 4
 
 
-def _launch(symbol, maps, lvl_idx, r0, c0, out, wh, ww, scales, offsets,
-            fold_channels):
-    """Fill the kernel's arguments from levels read in place through their
-    strides, launch, and check. fold_channels (K5): an (H, W, C) level
-    goes over as rows of W*C elements, the window as ww*C columns from
-    c0*C (its channels must be contiguous); otherwise (K1) each channel is
-    an output segment of its own."""
+def _extract_args(maps, lvl_idx, r0, c0, out, wh, ww, scales, offsets,
+                  fold_channels) -> _ExtractArgs:
+    """K1's or K5's arguments, from levels read in place through their
+    strides. fold_channels (K5): an (H, W, C) level goes over as rows of
+    W*C elements, the window as ww*C columns from c0*C (its channels must
+    be contiguous); otherwise (K1) each channel is an output segment of
+    its own."""
     n_levels = len(maps[0])
     if len(maps) > MAX_MAPS or n_levels > MAX_LEVELS:
         raise ValueError("too many maps or levels for the kernel")
@@ -185,10 +185,7 @@ def _launch(symbol, maps, lvl_idx, r0, c0, out, wh, ww, scales, offsets,
     a.wh, a.cmul, a.rows_per_thread = wh, cmul, ROWS_PER_THREAD
     a.src_dtype = _DTYPE_CODE[maps[0][0].dtype]
     a.out_bf16 = int(out.dtype == torch.bfloat16)
-    with torch.cuda.device(out.device):
-        rc = kernels.entry("extract", symbol, _ExtractArgs)(
-            ctypes.byref(a), kernels.stream_of(out))
-    kernels.check("extract", rc)
+    return a
 
 
 def _planar(win):
@@ -215,6 +212,10 @@ def extract_group_windows_plain(map_levels, lvl_idx, r0, c0, wh: int,
     return row.reshape(nblk // group, group * wh, row.shape[2])
 
 
+@kernels.register("extract", "mrtx_extract_group_windows", _ExtractArgs,
+                  passes=("extract_group_kernel",),
+                  plain=extract_group_windows_plain,
+                  replaces="moonrtx_tpu/ops/extract.py:372")
 def extract_group_windows(map_levels, lvl_idx, r0, c0, wh: int, ww: int,
                           scales=None, offsets=None, group: int = 8,
                           out_dtype=torch.float32):
@@ -255,13 +256,10 @@ def extract_group_windows(map_levels, lvl_idx, r0, c0, wh: int, ww: int,
     nch = maps[0][0].shape[2] if maps[0][0].ndim == 3 else 1
     out = torch.empty((nblk // group, group * wh, n_maps * nch * ww),
                       dtype=out_dtype, device=lvl_idx.device)
-    _launch("mrtx_extract_group_windows", maps, lvl_idx, r0, c0, out, wh,
-            ww, scales, offsets, fold_channels=False)
-    kernels.launched(extract_group_windows, call)
+    kernels.launch(extract_group_windows,
+                   _extract_args(maps, lvl_idx, r0, c0, out, wh, ww, scales,
+                                 offsets, fold_channels=False), out, call)
     return out
-
-
-extract_group_windows.launches = 0
 
 
 # ---- one window per block from the block's own level (K5) ------------------
@@ -286,6 +284,10 @@ def extract_level_windows_plain(levels, lvl_idx, r0, c0, wh: int, ww: int,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
+@kernels.register("extract", "mrtx_extract_level_windows", _ExtractArgs,
+                  passes=("extract_level_kernel",),
+                  plain=extract_level_windows_plain,
+                  replaces="moonrtx_tpu/ops/extract.py:239")
 def extract_level_windows(levels, lvl_idx, r0, c0, wh: int, ww: int,
                           scale: float = 1.0, offset: float = 0.0):
     """Per-block windows from levels[lvl_idx[b]] in one pass (K5).
@@ -317,14 +319,12 @@ def extract_level_windows(levels, lvl_idx, r0, c0, wh: int, ww: int,
     texel = tuple(maps[0][0].shape[2:])
     out = torch.empty((nblk, wh, len(maps) * ww) + texel,
                       dtype=torch.float32, device=lvl_idx.device)
-    _launch("mrtx_extract_level_windows", maps, lvl_idx, r0, c0, out, wh,
-            ww, (float(scale),) * len(maps), (float(offset),) * len(maps),
-            fold_channels=True)
-    kernels.launched(extract_level_windows, call)
+    kernels.launch(extract_level_windows,
+                   _extract_args(maps, lvl_idx, r0, c0, out, wh, ww,
+                                 (float(scale),) * len(maps),
+                                 (float(offset),) * len(maps),
+                                 fold_channels=True), out, call)
     return out
-
-
-extract_level_windows.launches = 0
 
 
 def extract_windows(tex, r0, c0, wh: int, ww: int, scale: float = 1.0,
@@ -391,6 +391,10 @@ def resample_group_windows_plain(levels, lvl_idx, r0, c0, wy, wx, wh: int,
     return m0 * (1.0 - fy) + m1 * fy + mean[:, None]
 
 
+@kernels.register("resample", "mrtx_resample_group_windows", _ResampleArgs,
+                  passes=("resample_kernel",),
+                  plain=resample_group_windows_plain,
+                  replaces="moonrtx_tpu/ops/extract.py:516")
 def resample_group_windows(levels, lvl_idx, r0, c0, wy, wx, wh: int,
                            ww: int, scale: float = 1.0, offset: float = 0.0,
                            group: int = 8):
@@ -443,13 +447,5 @@ def resample_group_windows(levels, lvl_idx, r0, c0, wy, wx, wh: int,
     a.nblk, a.b, a.n_levels = nblk, wy.shape[1], len(levels)
     a.wh, a.ww = wh, ww
     a.src_dtype = _DTYPE_CODE[levels[0].dtype]
-    with torch.cuda.device(wy.device):
-        rc = kernels.entry("resample", "mrtx_resample_group_windows",
-                           _ResampleArgs)(ctypes.byref(a),
-                                          kernels.stream_of(out))
-    kernels.check("resample", rc)
-    kernels.launched(resample_group_windows, call)
+    kernels.launch(resample_group_windows, a, out, call)
     return out
-
-
-resample_group_windows.launches = 0

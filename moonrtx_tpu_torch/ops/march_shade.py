@@ -449,6 +449,9 @@ def _march_args(strip, h: int, w: int, ns: int, n_coarse: int,
     return a
 
 
+@kernels.register("march_shade", "mrtx_march_shade", _MarchArgs,
+                  passes=("march_kernel",), plain=march_shade_plain,
+                  replaces="moonrtx_tpu/ops/pallas_march.py:633")
 def march_shade(params, dbx, dby, dbz, t_enter, t_end, active, scal, hwin,
                 awin, swin, h: int, w: int, n_coarse: int = 12,
                 n_bisect: int = 3, use_shadow: bool = True,
@@ -498,15 +501,8 @@ def march_shade(params, dbx, dby, dbz, t_enter, t_end, active, scal, hwin,
         a.tprev, a.fprev = rays[6].data_ptr(), rays[7].data_ptr()
     for i, o in enumerate(outs):
         a.out[i] = o.data_ptr()
-    with torch.cuda.device(dev):
-        rc = kernels.entry("march_shade", "mrtx_march_shade", _MarchArgs)(
-            ctypes.byref(a), kernels.stream_of(outs[0]))
-    kernels.check("march_shade", rc)
-    kernels.launched(march_shade, call)
+    kernels.launch(march_shade, a, outs[0], call)
     return tuple(outs)
-
-
-march_shade.launches = 0
 
 
 # ---- the burst: warm samples 1..n-1 in one launch ---------------------------
@@ -557,6 +553,10 @@ class _BurstArgs(ctypes.Structure):
     ]
 
 
+# no pallas_call: the JAX package's burst is a jitted fori_loop
+@kernels.register("march_shade", "mrtx_march_burst", _BurstArgs,
+                  passes=("burst_kernel",), plain=march_burst_plain,
+                  replaces="moonrtx_tpu/engine/blocked.py:940")
 def march_burst(params, basis, rotation, jitters, h_bound, r, g, b, t_prev,
                 f_prev, scal, hwin, awin, swin, h: int, w: int, height: int,
                 width: int, h_min: float, n_samples: int, n_coarse: int = 12,
@@ -631,12 +631,5 @@ def march_burst(params, basis, rotation, jitters, h_bound, r, g, b, t_prev,
     r_in = C.MOON_RADIUS * h_min * 0.999      # block_rays' inner sphere
     a.r2_outer, a.r2_inner = C.MOON_RADIUS * C.MOON_RADIUS, r_in * r_in
     a.wbk, a.n_samples = width // 16, n_samples
-    with torch.cuda.device(dev):
-        rc = kernels.entry("march_shade", "mrtx_march_burst", _BurstArgs)(
-            ctypes.byref(a), kernels.stream_of(outs[0]))
-    kernels.check("march_shade", rc)
-    kernels.launched(march_burst, call)
+    kernels.launch(march_burst, a, outs[0], call)
     return tuple(outs)
-
-
-march_burst.launches = 0

@@ -69,6 +69,13 @@ def shadow_factor_plain(hs, st, ct, sun_ang_radius: float,
     return torch.where(m_max < 0.0, 1.0, factor)
 
 
+@kernels.register("shadow_prefix", "mrtx_shadow_factor",
+                  (ctypes.c_void_p,) * 5 + (ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_float, ctypes.c_float,
+                                            ctypes.c_int),
+                  passes=("shadow_chunk_max_kernel", "shadow_factor_kernel"),
+                  plain=shadow_factor_plain,
+                  replaces="moonrtx_tpu/ops/shadow_prefix.py:120")
 def shadow_factor(hs, st, ct, sun_ang_radius: float, moon_radius: float):
     """Penumbra factor map from scan-grid heights (K3, two passes over
     theta chunks on the card).
@@ -97,19 +104,9 @@ def shadow_factor(hs, st, ct, sun_ang_radius: float, moon_radius: float):
     chunks = -(-n_theta // CHUNK_ROWS)
     scratch = torch.empty((2, chunks, n_phi), dtype=torch.float32,
                           device=hs.device)
-    fn = kernels.lib("shadow_prefix").mrtx_shadow_factor
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(hs.device):
-        rc = fn(kernels.ptr(hs), kernels.ptr(st), kernels.ptr(ct),
-                kernels.ptr(scratch), kernels.ptr(out), n_theta, n_phi,
-                float(moon_radius), float(sun_ang_radius), CHUNK_ROWS,
-                kernels.stream_of(out))
-    kernels.check("shadow_prefix", rc)
-    kernels.launched(shadow_factor, call)
+    kernels.launch(shadow_factor,
+                   (hs.data_ptr(), st.data_ptr(), ct.data_ptr(),
+                    scratch.data_ptr(), out.data_ptr(), n_theta, n_phi,
+                    float(moon_radius), float(sun_ang_radius), CHUNK_ROWS),
+                   out, call)
     return out
-
-
-shadow_factor.launches = 0

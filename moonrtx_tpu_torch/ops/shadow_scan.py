@@ -489,6 +489,11 @@ class _BounceArgs(ctypes.Structure):
 _rows_on_device: dict = {}   # (n_coarse, n_fine, n_phi, device) -> rows
 
 
+# no pallas_call: the JAX package's pyramid is jnp code XLA fuses
+@kernels.register("bounce", "mrtx_bounce", _BounceArgs,
+                  passes=("bounce_pyramid_kernel", "bounce_collapse_kernel"),
+                  plain=bounce_from_parts_plain,
+                  replaces="moonrtx_tpu/ops/shadow_scan.py:447")
 @span("scene.bounce")
 def bounce_from_parts(hs, factor, alb_s, n_coarse: int, n_fine: int,
                       n_phi: int, n_bounces: int = 1):
@@ -523,27 +528,18 @@ def bounce_from_parts(hs, factor, alb_s, n_coarse: int, n_fine: int,
         _rows_on_device[key] = rows
     n_levels = bounce_levels(n_theta, n_phi)
     passes = 2 if n_bounces >= 2 else 1
-    lib = kernels.lib("bounce")
-    lib.mrtx_bounce_scratch.argtypes = [ctypes.c_int] * 4
-    lib.mrtx_bounce_scratch.restype = ctypes.c_longlong
+    scratch_size = kernels.entry("bounce", "mrtx_bounce_scratch",
+                                 (ctypes.c_int,) * 4, ctypes.c_longlong)
     hs, factor, alb_s = (t.contiguous() for t in (hs, factor, alb_s))
-    scratch = torch.empty(
-        lib.mrtx_bounce_scratch(n_theta, n_phi, n_levels, passes),
-        dtype=torch.float32, device=hs.device)
+    scratch = torch.empty(scratch_size(n_theta, n_phi, n_levels, passes),
+                          dtype=torch.float32, device=hs.device)
     out = torch.empty_like(hs)
     a = _BounceArgs(hs.data_ptr(), factor.data_ptr(), alb_s.data_ptr(),
                     rows.data_ptr(), scratch.data_ptr(), out.data_ptr(),
                     n_theta, n_phi, n_levels, passes,
                     BOUNCE_WALL_LIT_FRACTION / 8.0, BOUNCE_MAX)
-    with torch.cuda.device(hs.device):
-        rc = kernels.entry("bounce", "mrtx_bounce", _BounceArgs)(
-            ctypes.byref(a), kernels.stream_of(out))
-    kernels.check("bounce", rc)
-    kernels.launched(bounce_from_parts, call)
+    kernels.launch(bounce_from_parts, a, out, call)
     return out
-
-
-bounce_from_parts.launches = 0
 
 
 def sun_frame_basis(sun_dir_body):

@@ -11,9 +11,9 @@ gives it no device-side copy, and the device work launched inside it is
 found through the launches' correlation ids (tools/torch_frame_profile.py
 reads them so).
 
-``count(name, n)`` adds to a named counter, always on, like the kernel
-wrappers' ``launches``; ``counters()`` copies them all, the wrappers'
-launches included as ``launch.<wrapper>``.
+``count(name, n)`` adds to a named counter, always on; ``counters()``
+copies them all. A kernel's launches are the counter
+``launch.<wrapper>`` (kernels.launch counts them).
 
 FrameStats (a copy of the reference's) feeds the status bar.
 """
@@ -89,14 +89,15 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counters() -> dict:
-    """A copy of every counter, with each kernel wrapper's launches as
-    ``launch.<wrapper>``."""
-    from moonrtx_tpu_torch import kernels
+    """A copy of every counter."""
+    return dict(_counts)
 
-    out = dict(_counts)
-    for wrapper, n in kernels.launch_counts().items():
-        out["launch." + wrapper] = n
-    return out
+
+def reset(prefix: str) -> None:
+    """Set every counter whose name starts with ``prefix`` to 0."""
+    for name in _counts:
+        if name.startswith(prefix):
+            _counts[name] = 0
 
 
 class FrameStats:

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import torch_parity  # noqa: F401  (one CPU thread, as the other port tests)
+from moonrtx_tpu_torch import kernels
 from moonrtx_tpu_torch.config import RenderConfig
 from moonrtx_tpu_torch.data.synth import synthesize_moon
 from moonrtx_tpu_torch.engine import blocked
@@ -123,7 +124,7 @@ def test_burst_counts_its_fused_samples(burst_args, monkeypatch):
         return real(*a, **k)
 
     monkeypatch.setattr(mk, "march_burst_plain", spy)
-    launches = mk.march_burst.launches
+    launches = kernels.launch_counts()["march_burst"]
     for n, fused in ((4, 3), (1, 0), (2, 1)):
         before = profiling.counters().get("burst.fused_samples", 0)
         blocked._burst_core(n_samples=n, **burst_args)
@@ -131,7 +132,7 @@ def test_burst_counts_its_fused_samples(burst_args, monkeypatch):
         assert after - before == fused
     assert bursts == [4, 2]
     # no kernel off the card
-    assert mk.march_burst.launches == launches
+    assert kernels.launch_counts()["march_burst"] == launches
 
 
 def test_burst_takes_more_samples_than_sample_zero(burst_args):

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from moonrtx_tpu.ops import extract as jx
+from moonrtx_tpu_torch import kernels
 from moonrtx_tpu_torch.ops import extract as tx
 from moonrtx_tpu_torch.ops import sampler as tsampler
 from torch_parity import (EXTRACT_DTYPES, EXTRACT_FAMILIES,
@@ -72,12 +73,13 @@ def _extract_both(maps, dtype, lvl, r0, c0, wh, ww, scales, offsets):
         j_maps, jnp.asarray(lvl), jnp.asarray(r0), jnp.asarray(c0), wh, ww,
         scales=scales, offsets=offsets, group=8, out_dtype=j_out,
         interpret=True)
-    n0 = tx.extract_group_windows.launches
+    n0 = kernels.launch_counts()["extract_group_windows"]
     got = tx.extract_group_windows(
         t_maps, torch.from_numpy(lvl), torch.from_numpy(r0),
         torch.from_numpy(c0), wh, ww, scales=scales, offsets=offsets,
         group=8, out_dtype=t_out)
-    assert tx.extract_group_windows.launches == n0  # CPU: plain version
+    # CPU: plain version
+    assert kernels.launch_counts()["extract_group_windows"] == n0
     assert got.dtype == t_out and tuple(got.shape) == tuple(ref.shape)
     return (got.to(torch.float32).numpy(),
             np.asarray(ref.astype(jnp.float32)))
@@ -111,12 +113,13 @@ def _level_both(levels, lvl, r0, c0, wh, ww, scale, offset):
         tuple(jnp.asarray(a) for a in levels), jnp.asarray(lvl),
         jnp.asarray(r0), jnp.asarray(c0), wh, ww, scale=scale,
         offset=offset, interpret=True))
-    n0 = tx.extract_level_windows.launches
+    n0 = kernels.launch_counts()["extract_level_windows"]
     got = tx.extract_level_windows(
         [torch.from_numpy(a) for a in levels], torch.from_numpy(lvl),
         torch.from_numpy(r0), torch.from_numpy(c0), wh, ww, scale=scale,
         offset=offset)
-    assert tx.extract_level_windows.launches == n0  # CPU: plain version
+    # CPU: plain version
+    assert kernels.launch_counts()["extract_level_windows"] == n0
     assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
     return got.numpy(), ref
 

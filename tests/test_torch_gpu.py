@@ -83,13 +83,13 @@ def test_extract_group_windows_matches_plain(cuda, dtype):
     ref = extract.extract_group_windows(maps, lvl, r0, c0, 40, 64,
                                         scales=scales, offsets=offsets,
                                         out_dtype=out_dtype)
-    n0 = extract.extract_group_windows.launches
+    n0 = kernels.launch_counts()["extract_group_windows"]
     got = extract.extract_group_windows(
         [[l.to(cuda) for l in m] for m in maps], lvl.to(cuda), r0.to(cuda),
         c0.to(cuda), 40, 64, scales=scales, offsets=offsets,
         out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert extract.extract_group_windows.launches == n0 + 1
+    assert kernels.launch_counts()["extract_group_windows"] == n0 + 1
     assert torch.equal(got.cpu(), ref)
 
 
@@ -121,13 +121,13 @@ def test_extract_level_windows_matches_plain(cuda, dtype):
     scale, offset = (2.5e-5, 0.9) if dtype != "float32" else (1.0, 0.0)
     ref = extract.extract_level_windows_plain(levels, lvl, r0, c0, wh, ww,
                                               scale, offset)
-    n0 = extract.extract_level_windows.launches
+    n0 = kernels.launch_counts()["extract_level_windows"]
     ptrs = [l.data_ptr() for l in on_card]
     got = extract.extract_level_windows(on_card, lvl.to(cuda), r0.to(cuda),
                                         c0.to(cuda), wh, ww, scale=scale,
                                         offset=offset)
     torch.cuda.synchronize()
-    assert extract.extract_level_windows.launches == n0 + 1
+    assert kernels.launch_counts()["extract_level_windows"] == n0 + 1
     assert [l.data_ptr() for l in on_card] == ptrs      # no level copied
     assert got.shape == (nblk, wh, ww) and got.dtype == torch.float32
     assert torch.equal(got.cpu(), ref)
@@ -167,19 +167,19 @@ def test_extract_hard_cases_match_plain(cuda, family, dtype,
         lambda t: t.to(torch.bfloat16))
     if k1 is not None:
         out_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-        n0 = extract.extract_group_windows.launches
+        n0 = kernels.launch_counts()["extract_group_windows"]
         got = extract.extract_group_windows(**k1, out_dtype=out_dtype)
         ref = extract.extract_group_windows_plain(**k1, out_dtype=out_dtype)
         torch.cuda.synchronize()
-        assert extract.extract_group_windows.launches == n0 + 1
+        assert kernels.launch_counts()["extract_group_windows"] == n0 + 1
         assert got.shape == ref.shape and got.dtype == ref.dtype
         assert torch.equal(_bits(got), _bits(ref))
     if k5 is not None:
-        n0 = extract.extract_level_windows.launches
+        n0 = kernels.launch_counts()["extract_level_windows"]
         got = extract.extract_level_windows(**k5)
         ref = extract.extract_level_windows_plain(**k5)
         torch.cuda.synchronize()
-        assert extract.extract_level_windows.launches == n0 + 1
+        assert kernels.launch_counts()["extract_level_windows"] == n0 + 1
         assert got.shape == ref.shape
         assert torch.equal(_bits(got), _bits(ref))
 
@@ -270,10 +270,10 @@ def test_shadow_factor_matches_plain(cuda, n_phi):
     ref = shadow_prefix.shadow_factor_plain(hs, st, ct, 0.0046,
                                             C.MOON_RADIUS)
     on_card = [a.to(cuda) for a in (hs, st, ct)]
-    n0 = shadow_prefix.shadow_factor.launches
+    n0 = kernels.launch_counts()["shadow_factor"]
     got = shadow_prefix.shadow_factor(*on_card, 0.0046, C.MOON_RADIUS)
     torch.cuda.synchronize()
-    assert shadow_prefix.shadow_factor.launches == n0 + 1
+    assert kernels.launch_counts()["shadow_factor"] == n0 + 1
     assert (got.cpu() - ref).abs().max().item() <= 1e-4
     assert torch.equal(got, shadow_prefix.shadow_factor_plain(
         *on_card, 0.0046, C.MOON_RADIUS))
@@ -323,11 +323,11 @@ def test_resample_group_windows_hard_cases(cuda, family, dtype):
     case = hard_cases.resample_hard_case(family, dtype, seed=7)
     call = hard_cases.resample_case_with(
         case, lambda a: torch.from_numpy(a).to(cuda))
-    n0 = extract.resample_group_windows.launches
+    n0 = kernels.launch_counts()["resample_group_windows"]
     got = extract.resample_group_windows(**call)
     ref = extract.resample_group_windows_plain(**call)
     torch.cuda.synchronize()
-    assert extract.resample_group_windows.launches == n0 + 1
+    assert kernels.launch_counts()["resample_group_windows"] == n0 + 1
     span = float(max((l.float() * case["scale"] + case["offset"]).max()
                      - (l.float() * case["scale"] + case["offset"]).min()
                      for l in call["levels"]))
@@ -599,10 +599,10 @@ def test_bounce_kernel_matches_plain_on_the_1080p_grid(bounce_1080p,
 
     _, call = bounce_1080p
     call = dict(call, n_bounces=n_bounces)
-    n0 = shadow_scan.bounce_from_parts.launches
+    n0 = kernels.launch_counts()["bounce_from_parts"]
     got = shadow_scan.bounce_from_parts(**call)
     torch.cuda.synchronize()
-    assert shadow_scan.bounce_from_parts.launches == n0 + 1
+    assert kernels.launch_counts()["bounce_from_parts"] == n0 + 1
     _assert_bounce_close(got, call, shadow_scan.bounce_from_parts_plain)
 
 
@@ -641,12 +641,12 @@ def test_bounce_refresh_on_card_matches_plain(bounce_1080p, n_bounces):
     smap = s._shadow[0]
     basis = torch.as_tensor(np.asarray(s._bounce_basis, np.float32),
                             device=smap.device)
-    n0 = shadow_scan.bounce_from_parts.launches
+    n0 = kernels.launch_counts()["bounce_from_parts"]
     got = shadow_scan.bounce_refresh(smap, call["hs"], s.alb_lum(slevel),
                                      basis, h, w, nc, nf, nphi,
                                      n_bounces=n_bounces)
     torch.cuda.synchronize()
-    assert shadow_scan.bounce_from_parts.launches == n0 + 1
+    assert kernels.launch_counts()["bounce_from_parts"] == n0 + 1
     assert got.shape == (nc + nf, nphi + shadow_scan.PHI_PAD)
     assert torch.equal(got[:, nphi:], got[:, :shadow_scan.PHI_PAD])
     alb_s = shadow_scan.resample_alb_half(s.alb_lum(slevel), basis, h, w, nc,
@@ -662,10 +662,10 @@ def test_bounce_kernel_refuses_other_grids(cuda):
     from moonrtx_tpu_torch.ops import shadow_scan
 
     hs = torch.ones((96, 512), device=cuda)
-    n0 = shadow_scan.bounce_from_parts.launches
+    n0 = kernels.launch_counts()["bounce_from_parts"]
     with pytest.raises(ValueError, match="unsupported bounce grid"):
         shadow_scan.bounce_from_parts(hs, hs, hs, 32, 64, 512)
-    assert shadow_scan.bounce_from_parts.launches == n0
+    assert kernels.launch_counts()["bounce_from_parts"] == n0
 
 
 def _session_scene(seed=5):
@@ -823,13 +823,10 @@ def test_mesh_kernel_shapes_match_plain(cuda, monkeypatch, where):
         picks = [("extract_group_windows", by["extract_group_windows"][2]),
                  ("extract_group_windows", by["extract_group_windows"][3])]
         assert picks[0][1]["r0"].shape[0] == (160 // 8) * (256 // 16)
-    plain = {"extract_group_windows": extract.extract_group_windows_plain,
-             "resample_group_windows": extract.resample_group_windows_plain,
-             "shadow_factor": shadow_prefix.shadow_factor_plain,
-             "march_shade": march_shade.march_shade_plain}
-    wrapper = kernels.wrappers()
+    declared = kernels.registered()
     for name, call in picks:
-        got, ref = wrapper[name](**call), plain[name](**call)
+        got = declared[name].wrapper(**call)
+        ref = declared[name].plain(**call)
         torch.cuda.synchronize()
         if name == "extract_group_windows":
             assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
@@ -908,11 +905,11 @@ def test_program_spans_have_no_device_copy(cuda):
 def _assert_sample_is_plain(call):
     from moonrtx_tpu_torch.ops import blocked_sample as bs
 
-    n0 = bs.blocked_sample.launches
+    n0 = kernels.launch_counts()["blocked_sample"]
     got = bs.blocked_sample(**call)
     ref = bs.blocked_sample_plain(**call)
     torch.cuda.synchronize()
-    assert bs.blocked_sample.launches == n0 + 1
+    assert kernels.launch_counts()["blocked_sample"] == n0 + 1
     hit = ref.hitbuf[..., 3] > 0
     assert 0.2 < float(hit.float().mean()) < 0.9
     assert float(ref.rgb[hit].max()) > 0.0
@@ -998,8 +995,6 @@ def test_blocked_frame_is_one_launch_a_sample(blocked_small):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from moonrtx_tpu_torch.ops import blocked_sample as bs
-
     path = Path(__file__).resolve().parents[1] / "tools" / \
         "torch_frame_profile.py"
     spec = importlib.util.spec_from_file_location("torch_frame_profile", path)
@@ -1007,10 +1002,10 @@ def test_blocked_frame_is_one_launch_a_sample(blocked_small):
     spec.loader.exec_module(tool)
     s, _ = blocked_small
     n = s._accum_n
-    n0 = bs.blocked_sample.launches
+    n0 = kernels.launch_counts()["blocked_sample"]
     s.render(n + 3)
     torch.cuda.synchronize()
-    assert bs.blocked_sample.launches == n0 + 3
+    assert kernels.launch_counts()["blocked_sample"] == n0 + 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         s.render(n + 4)
@@ -1033,10 +1028,10 @@ def test_blocked_sample_refuses_what_the_kernel_does_not_take(blocked_small):
     wide = torch.empty(geom.db.shape[:-1] + (6,), device=geom.db.device)
     strided = wide[..., :3]
     strided.copy_(geom.db)
-    n0 = bs.blocked_sample.launches
+    n0 = kernels.launch_counts()["blocked_sample"]
     with pytest.raises(ValueError, match="contiguous"):
         bs.blocked_sample(**dict(call, geom=geom._replace(db=strided)))
     with pytest.raises(ValueError, match="cpu"):
         bs.blocked_sample(**dict(call, fp=call["fp"]._replace(
             rotation=call["fp"].rotation.cpu())))
-    assert bs.blocked_sample.launches == n0
+    assert kernels.launch_counts()["blocked_sample"] == n0

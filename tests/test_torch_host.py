@@ -14,6 +14,7 @@ modules against the reference.
 
 import ast
 import re
+import subprocess
 import sys
 from datetime import datetime, timezone
 from pathlib import Path
@@ -52,30 +53,103 @@ def test_port_imports_no_jax_and_no_reference():
             assert top not in ("jax", "jaxlib", "moonrtx_tpu"), (path, name)
 
 
-def test_every_global_function_is_named_in_chip_smoke(monkeypatch):
-    """Each __global__ function in csrc/*.cu is a pass of one entry of
-    chip_smoke.KERNELS, so no pass of a kernel goes untimed or unchecked,
-    and KERNELS names no function that does not exist."""
-    monkeypatch.syspath_prepend(str(ROOT))
-    sys.modules.pop("chip_smoke", None)
-    import chip_smoke
+def test_every_global_function_is_named_in_chip_smoke():
+    """Each __global__ function in csrc/*.cu is a pass of one kernel
+    wrapper's declaration (kernels.register), the table chip_smoke.py's
+    phase 4 times and checks every pass of, so no pass of a kernel goes
+    untimed or unchecked; and no declaration names a function that does
+    not exist in its source."""
+    from moonrtx_tpu_torch import kernels
 
-    declared = set()
+    assert "kernels.registered()" in (ROOT / "chip_smoke.py").read_text()
+    declared = kernels.registered()
+    found_all = set()
     sources = sorted((ROOT / "moonrtx_tpu_torch" / "csrc").glob("*.cu"))
     assert len(sources) >= 4
+    assert kernels.SOURCES == tuple(path.stem for path in sources)
     for path in sources:
         found = re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
             path.read_text())
         assert len(found) == path.read_text().count("__global__"), path
-        declared.update(found)
-        for entry in chip_smoke.KERNELS.values():
-            if entry["source"].endswith("/" + path.name):
-                assert set(entry["kernel"]) <= set(found), (path, entry)
-    named = [k for entry in chip_smoke.KERNELS.values()
-             for k in entry["kernel"]]
+        found_all.update(found)
+        for k in declared.values():
+            if k.source == path.stem:
+                assert set(k.passes) <= set(found), (path, k)
+    named = [kernel for k in declared.values() for kernel in k.passes]
     assert len(named) == len(set(named))
-    assert declared == set(named)
+    assert found_all == set(named)
+    assert {k.source for k in declared.values()} == set(kernels.SOURCES)
+
+
+def test_profiling_is_the_bottom_and_kernels_names_no_wrapper():
+    """utils/profiling.py imports no module of the package (the launch
+    counters live there, and kernels.py and the wrappers import it), and
+    kernels.py names no wrapper: each declares itself."""
+    from moonrtx_tpu_torch import kernels
+
+    pkg = ROOT / "moonrtx_tpu_torch"
+    assert not [name for name in _imports(pkg / "utils" / "profiling.py")
+                if name.split(".")[0] == "moonrtx_tpu_torch"]
+    path = pkg / "kernels.py"
+    assert not [name for name in _imports(path)
+                if name.startswith("moonrtx_tpu_torch.ops")]
+    words = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Name):
+            words.add(node.id)
+        elif isinstance(node, ast.Attribute):
+            words.add(node.attr)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            words.update(re.findall(r"\w+", node.value))
+    names = set(kernels.registered())
+    assert len(names) >= 8
+    assert not names & words
+
+
+def test_launch_counts_keep_their_keys_through_cpu_calls(monkeypatch):
+    """launch_counts() names every declared wrapper, each at 0 in a fresh
+    process, and keeps its keys and counts through a CPU call of each
+    wrapper (the plain versions launch nothing): a benchmark harness
+    subtracts two of them key by key."""
+    from moonrtx_tpu_torch import kernels
+    from moonrtx_tpu_torch.config import RenderConfig
+    from moonrtx_tpu_torch.data.synth import synthesize_moon
+    from moonrtx_tpu_torch.engine.scene import MoonScene
+    from moonrtx_tpu_torch.types import Observer
+
+    fresh = subprocess.run(
+        [sys.executable, "-c", "from moonrtx_tpu_torch import kernels; "
+         "print(sorted(kernels.launch_counts().items()))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    declared = kernels.registered()
+    assert fresh.stdout.strip() == str(sorted(dict.fromkeys(declared,
+                                                            0).items()))
+    called = dict.fromkeys(declared, 0)
+    for name, k in declared.items():
+        def spy(*a, _name=name, _fn=k.wrapper, **kw):
+            called[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(sys.modules[k.wrapper.__module__], name, spy)
+    before = kernels.launch_counts()
+    assert set(before) == set(declared)
+    elev, albedo = synthesize_moon(180, 360, seed=5, n_craters=60)
+    rs = float(elev.max())
+    cfg = RenderConfig(
+        observer=Observer(50.06, 19.94, 219),
+        dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
+        width=128, height=96, backend="pallas",
+        shadow_accuracy=4).validate()
+    scene = MoonScene(cfg, (elev / rs).astype(np.float32), rs, albedo, None,
+                      device="cpu")
+    scene.update_view()
+    scene.render(2)                       # the march path and its burst
+    scene.backend = "blocked"             # the default path, cold windows
+    scene.set_view_orientation(scene.view_orientation)
+    scene.render(1)
+    assert all(called.values()), called
+    assert kernels.launch_counts() == before
 
 
 def test_scene_without_device_raises_when_no_card(monkeypatch):

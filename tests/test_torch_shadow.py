@@ -32,6 +32,7 @@ import torch
 from moonrtx_tpu import constants as C
 from moonrtx_tpu.ops import shadow_prefix as jprefix
 from moonrtx_tpu.ops import shadow_scan as jscan
+from moonrtx_tpu_torch import kernels
 from moonrtx_tpu_torch.ops import shadow_prefix as tprefix
 from moonrtx_tpu_torch.ops import shadow_scan as tscan
 from torch_parity import (SHADOW_FAMILIES, SHADOW_SAR, jax_kernel_path,
@@ -192,18 +193,18 @@ def test_bounce_wrapper_takes_the_plain_path_on_the_cpu():
                           .astype(np.float32))
     factor = torch.from_numpy((rng.random(shape) > 0.3).astype(np.float32))
     alb = torch.from_numpy((0.1 + 0.1 * rng.random(shape)).astype(np.float32))
-    n0 = tscan.bounce_from_parts.launches
+    n0 = kernels.launch_counts()["bounce_from_parts"]
     for n_bounces in (1, 2):
         got = tscan.bounce_from_parts(hs, factor, alb, nc, nf, nphi,
                                       n_bounces=n_bounces)
         assert torch.equal(got, tscan.bounce_from_parts_plain(
             hs, factor, alb, nc, nf, nphi, n_bounces=n_bounces))
-    assert tscan.bounce_from_parts.launches == n0
+    assert kernels.launch_counts()["bounce_from_parts"] == n0
     assert tscan.bounce_ok(nc + nf, nphi) and not tscan.bounce_ok(96, 512)
     meta = torch.empty((96, 512), device="meta")
     with pytest.raises(ValueError, match="unsupported bounce grid"):
         tscan.bounce_from_parts(meta, meta, meta, 32, 64, 512)
-    assert tscan.bounce_from_parts.launches == n0
+    assert kernels.launch_counts()["bounce_from_parts"] == n0
 
 
 @pytest.mark.parametrize("grid", [(256, 1280, 4096), (256, 256, 2048),
@@ -268,13 +269,14 @@ def test_ungrouped_resample_matches_reference(scan_inputs, kernel_path):
             _, hs_j = ref()
     else:
         _, hs_j = ref()
-    from moonrtx_tpu_torch.ops import extract as tx
-    n5, n4 = tx.extract_level_windows.launches, tx.resample_group_windows.launches
+    n0 = kernels.launch_counts()
+    n5, n4 = n0["extract_level_windows"], n0["resample_group_windows"]
     factor_t, hs_t = tscan.scan_wedge(
         torch.from_numpy(tex), basis_t, ang, *grid, blocked_resample=True,
         return_heights=True, resample_group=7)
-    assert tx.extract_level_windows.launches == n5      # CPU: plain versions
-    assert tx.resample_group_windows.launches == n4
+    # CPU: plain versions
+    assert kernels.launch_counts()["extract_level_windows"] == n5
+    assert kernels.launch_counts()["resample_group_windows"] == n4
     hs_j = np.asarray(hs_j)
     assert hs_t.shape == hs_j.shape == (128, 512)
     spread = float(hs_j.max() - hs_j.min())
