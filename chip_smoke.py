@@ -100,8 +100,8 @@ Phases, each fatal on failure:
    single-device scan fallback, and the frame within phase 3b's bounds
    of phase 3's; 8b: four 15-minute Q/W steps through Session on the
    kept windows, a consumed speculation, a flip and a brightness reset
-   (K2 alone), each frame within those bounds of the same view from cold
-   caches; 8c: the render level band-sharded (a small
+   (K2 and the ray setup alone), each frame within those bounds of the
+   same view from cold caches; 8c: the render level band-sharded (a small
    ``hbm_budget_gb``, the camera at MESH_BAND_ZOOM of its distance so
    the render level is one the plan may band), its frame against the
    replicated frame of the same view; each kernel at the new shapes (K3
@@ -134,7 +134,7 @@ BLOCKED_SAMPLES = 8            # one-sample frames of the blocked path
 PATH_KERNELS = {
     "pallas": ("extract_group_windows", "march_shade", "march_burst",
                "shadow_factor", "resample_group_windows",
-               "bounce_from_parts"),
+               "bounce_from_parts", "block_rays"),
     "blocked": ("extract_level_windows", "blocked_sample"),
     # the interactive session: time steps and drags on the march path (K1
     # shadow windows, K3/K4 scan, K4 and the bounce kernels in the bounce
@@ -142,7 +142,7 @@ PATH_KERNELS = {
     # windows, the blocked sample)
     "session": ("extract_group_windows", "march_shade", "shadow_factor",
                 "resample_group_windows", "extract_level_windows",
-                "bounce_from_parts", "blocked_sample"),
+                "bounce_from_parts", "blocked_sample", "block_rays"),
 }
 SESSION_STEPS = 8          # steps per time-step metric (bench.py:191-350)
 SESSION_PICKS = 20         # cursor positions of the pick metric
@@ -167,13 +167,16 @@ MESH_DEVICES = 4
 # three times per strip (heights, albedo, shadow|bounce; banded, the first
 # two are each device's band-local extraction for the whole frame); K2
 # once per sample and strip (the strips' own burst loop, no burst
-# kernel); no K5; the bounce pyramid once, on the gathered grid
+# kernel), and so the ray setup (banded, each device also sets up the
+# whole frame's rays once, for its band-local origins); no K5; the bounce
+# pyramid once, on the gathered grid
 MESH_COLD_LAUNCHES = {"resample_group_windows": 2 * MESH_DEVICES,
                       "shadow_factor": MESH_DEVICES,
                       "extract_group_windows": 3 * MESH_DEVICES,
                       "march_shade": SAMPLES * MESH_DEVICES,
                       "march_burst": 0, "extract_level_windows": 0,
-                      "bounce_from_parts": 1, "blocked_sample": 0}
+                      "bounce_from_parts": 1, "blocked_sample": 0,
+                      "block_rays": SAMPLES * MESH_DEVICES}
 MESH_BAND_BUDGET_GB = 0.01     # 8c: small enough to band the render level
 # 8c's camera, at this share of phase 3's distance: the render level is
 # then the 5760-row level 1 of the 11520-row map, which the band plan may
@@ -479,6 +482,25 @@ def compare(name: str, call: dict, got, ref) -> list:
               f"differ on {flips:.3g} of the pixels", flush=True)
         if flips > 1e-5:
             fail(f"{name}: hit flags differ on {flips} of the pixels")
+    elif name == "block_rays":
+        # bit for bit on the card (tests/test_torch_gpu.py), every field
+        import torch
+
+        err, tol, bits = 0.0, 0.0, True
+        for what, r in ref._asdict().items():
+            g = getattr(got, what)
+            if r is None or g is None:
+                bits = bits and g is None and r is None
+                continue
+            if r.dtype == torch.bool:
+                bits = bits and torch.equal(g, r)
+                continue
+            err = max(err, float((g - r).abs().max()))
+            bits = bits and torch.equal(g.view(torch.int32),
+                                        r.view(torch.int32))
+        if not bits:
+            fail(f"{name}: not bit-equal to its plain version (largest "
+                 f"difference {err:.3g})")
     elif name == "march_burst":
         # the mean of K2's samples, whose rgb is within 2.6e-5 of its plain
         # version's on this map (PERF.md)
@@ -947,7 +969,7 @@ def mesh_phase(cfg, img3, hit3, card: str, out_dir: str) -> None:
         if not within_frame_bounds(st):
             fail(f"mesh: {what} is out of bounds")
 
-    def cold_burst(sc, label: str):
+    def cold_burst(sc, label: str, banded: bool = False):
         sc.update_view()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -961,9 +983,11 @@ def mesh_phase(cfg, img3, hit3, card: str, out_dir: str) -> None:
         peak = torch.cuda.max_memory_allocated() / 2**30
         say(f"{label}: cold {SAMPLES}-sample frame {ms:.1f} ms, launches "
             f"{counts}, peak device memory {peak:.2f} GiB ({where})")
-        if counts != MESH_COLD_LAUNCHES:
-            fail(f"mesh: {label} launched {counts}, expected "
-                 f"{MESH_COLD_LAUNCHES}")
+        want = dict(MESH_COLD_LAUNCHES)
+        if banded:
+            want["block_rays"] += MESH_DEVICES
+        if counts != want:
+            fail(f"mesh: {label} launched {counts}, expected {want}")
         if not bool(torch.isfinite(sc._accum).all()) or img.shape != (
                 1080, 1920, 3):
             fail(f"mesh: {label} frame {img.shape} is not finite")
@@ -1036,7 +1060,7 @@ def mesh_phase(cfg, img3, hit3, card: str, out_dir: str) -> None:
     if not recs[3]["flip"]:
         fail("mesh: the W -> Q flip missed the flip cache")
     if {k: v for k, v in reset_counts.items() if v} != {
-            "march_shade": MESH_DEVICES}:
+            "march_shade": MESH_DEVICES, "block_rays": MESH_DEVICES}:
         fail(f"mesh: the brightness reset launched {reset_counts}")
     for r in recs:
         scene._prefetch = None
@@ -1079,7 +1103,7 @@ def mesh_phase(cfg, img3, hit3, card: str, out_dir: str) -> None:
         f"{scene.mip_level()})")
     if not scene.hf_sharded():
         fail("mesh: the render level is not band-sharded in 8c")
-    img_c, hit_c, calls = cold_burst(scene, "8c banded")
+    img_c, hit_c, calls = cold_burst(scene, "8c banded", banded=True)
     against("8c banded frame against 8a's replicated frame of the same "
             "view", img_c, hit_c, img_z, hit_z)
     k1 = [c for n, c in calls if n == "extract_group_windows"]
@@ -1419,6 +1443,9 @@ def main(argv=None) -> int:
         fail(f"march_shade launched {counts['march_shade']} and march_burst "
              f"{counts['march_burst']} times, expected 1 each (sample 0, "
              f"then samples 1-{SAMPLES - 1} in one burst)")
+    if counts["block_rays"] != 1:
+        fail(f"block_rays launched {counts['block_rays']} times on the "
+             "march path, expected once (the pose program's rays)")
     accum = scene._accum
     if not bool(torch.isfinite(accum).all()):
         fail("the frame has non-finite values")
@@ -1475,9 +1502,10 @@ def main(argv=None) -> int:
         fail(f"extract_level_windows launched "
              f"{counts_b['extract_level_windows']} times on the blocked "
              f"path, expected {K5_LAUNCHES_PER_POSE}")
-    if counts_b["blocked_sample"] != BLOCKED_SAMPLES:
-        fail(f"blocked_sample launched {counts_b['blocked_sample']} times "
-             f"for {BLOCKED_SAMPLES} samples, expected one a sample")
+    for name in ("blocked_sample", "block_rays"):
+        if counts_b[name] != BLOCKED_SAMPLES:
+            fail(f"{name} launched {counts_b[name]} times for "
+                 f"{BLOCKED_SAMPLES} samples, expected one a sample")
     if scene._accum_n != BLOCKED_SAMPLES:
         fail(f"the blocked path accumulated {scene._accum_n} samples")
     if not bool(torch.isfinite(scene._accum).all()):
@@ -1505,12 +1533,13 @@ def main(argv=None) -> int:
         fail("the blocked frame disagrees with the march frame")
     for name in PATH_KERNELS["blocked"]:
         counts[name] = counts_b[name]
+    counts["block_rays"] += counts_b["block_rays"]   # both frames replayed
     calls = calls + calls_blocked
 
     # a single-level launch beside one advanced-indexing gather: the height
     # launch cut down to the blocks that read level 0 (the main path's own
     # launches pick among three levels, which no single call does)
-    hcall = calls_blocked[0][1]
+    hcall = next(c for n, c in calls_blocked if n == "extract_level_windows")
     sel = hcall["lvl_idx"] == 0
     one = dict(hcall, levels=hcall["levels"][:1],
                lvl_idx=hcall["lvl_idx"][sel].contiguous(),
@@ -1623,6 +1652,14 @@ def main(argv=None) -> int:
               f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
               f"({entry['bound_by']}), library {entry['library_ms']}",
               flush=True)
+        if name == "block_rays":
+            dev_ms, n_ops = plain_device_ms(lambda: plain[name](**items[-1]))
+            print(f"#   {name}: the plain version's device time "
+                  f"{dev_ms:.3f} ms a blocked sample's ray setup in {n_ops} "
+                  f"device operations; {entry['ms']:.4f} ms per launch "
+                  f"against a bound of {entry['bound_ms']:.4f} ms "
+                  f"({entry['bound_ms'] / entry['ms']:.1%} of it reached)",
+                  flush=True)
         if name == "blocked_sample":
             dev_ms, n_ops = plain_device_ms(lambda: plain[name](**items[0]))
             print(f"#   {name}: the plain version's device time "

@@ -35,13 +35,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from moonrtx_tpu_torch import constants as C
-from moonrtx_tpu_torch.engine.camera import CameraBasis, ray_directions
+from moonrtx_tpu_torch.engine.camera import CameraBasis
 from moonrtx_tpu_torch.engine.geometry import (
     latlon_to_unit,
     mat3_apply,
     mat3t_apply,
     normalize,
-    ray_sphere,
     unit_to_latlon,
 )
 from moonrtx_tpu_torch.engine.render import (
@@ -53,6 +52,7 @@ from moonrtx_tpu_torch.engine.render import (
 from moonrtx_tpu_torch.ops import blocked_sample as bs
 from moonrtx_tpu_torch.ops import extract as extract_ops
 from moonrtx_tpu_torch.ops import march_shade as mk
+from moonrtx_tpu_torch.ops import ray_setup
 from moonrtx_tpu_torch.ops import sampler
 from moonrtx_tpu_torch.ops import shadow_scan
 from moonrtx_tpu_torch.ops.sampler import latlon_to_rowcol, window_bilinear
@@ -170,91 +170,22 @@ class ShadowWindows(NamedTuple):
     sq: torch.Tensor        # per-block stride into the shadow grid (1/2/4)
 
 
-def _block_ray_dirs(basis: CameraBasis, height: int, width: int, jitter,
-                    row_offset=0, full_height: int = None):
-    """Ray directions generated directly in block layout (NBLK, B, 3);
-    row_offset/full_height as in camera.ray_directions."""
-    dev = basis.eye.device
-    fh = height if full_height is None else full_height
-    nblk = (height // BLOCK_H) * (width // BLOCK_W)
-    wbk = width // BLOCK_W
-    blk = torch.arange(nblk, dtype=torch.int32, device=dev)[:, None]
-    ray = torch.arange(BLOCK, dtype=torch.int32, device=dev)[None, :]
-    ys = ((blk // wbk) * BLOCK_H + ray // BLOCK_W).to(torch.float32)
-    xs = ((blk % wbk) * BLOCK_W + ray % BLOCK_W).to(torch.float32)
-    v = 1.0 - 2.0 * (ys + row_offset + 0.5 + jitter[0]) / fh
-    u = (2.0 * (xs + 0.5 + jitter[1]) / width - 1.0) * (width / fh)
-    d = (basis.forward[None, None, :]
-         + basis.tan_half_fov * (u[..., None] * basis.right[None, None, :]
-                                 + v[..., None] * basis.up[None, None, :]))
-    return normalize(d)
-
-
+@span("scene.rays")
 def block_rays(basis: CameraBasis, rotation, jitter, height: int, width: int,
                h_min: float, maxmap=None, h_bound=None, row_offset=0,
                full_height: int = None, image_dirs: bool = True) -> RayGeom:
     """Jittered rays + shell-chord ranges tightened against the per-block
-    local max height (from the dilated coarse max map, or a cached bound).
+    local max height (from the dilated coarse max map, or a cached bound):
+    one launch of the ray-setup kernel on the card (ops.ray_setup), its
+    plain torch version on the CPU.
 
     row_offset/full_height select a horizontal strip of a larger frame
     (image strips over a device mesh, parallel/tiles.py)."""
-    if image_dirs:
-        dirs_scene = ray_directions(basis, height, width, jitter,
-                                    row_offset=row_offset,
-                                    full_height=full_height)
-        db = mat3t_apply(rotation, to_blocks(dirs_scene))
-    else:
-        dirs_scene = None
-        db = mat3t_apply(rotation, _block_ray_dirs(
-            basis, height, width, jitter, row_offset, full_height))
-    ob = mat3t_apply(rotation, basis.eye)
-
-    hit_out, t_enter, t_exit_out = ray_sphere(ob, db, C.MOON_RADIUS)
-    hit_in, t_in, _ = ray_sphere(ob, db, C.MOON_RADIUS * h_min * 0.999)
-    t_enter = torch.clamp(t_enter, min=0.0)
-    t_end = torch.where(hit_in & (t_in > 0), t_in, t_exit_out)
-
-    if maxmap is not None and h_bound is None:
-        # per-block local height bound from a sparse chord sampling (16 rays
-        # x 6 chord fractions per block on the dilated coarse map)
-        mh, mw = maxmap.shape
-        step = max(db.shape[1] // 16, 1)
-        db_s = db[:, ::step]
-        te_s = t_enter[:, ::step]
-        tn_s = t_end[:, ::step]
-        fr = torch.linspace(0.0, 1.0, 6, dtype=torch.float32,
-                            device=db.device)
-        t_s = te_s[..., None] + (tn_s - te_s)[..., None] * fr
-        p_s = ob + t_s[..., None] * db_s[..., None, :]
-        lat_s, lon_s = unit_to_latlon(p_s)
-        rows = torch.clamp(((90.0 - lat_s) / 180.0 * mh).to(torch.int32),
-                           0, mh - 1)
-        cols = torch.clamp((torch.remainder(lon_s + 180.0, 360.0) / 360.0
-                            * mw).to(torch.int32), 0, mw - 1)
-        hs = maxmap.reshape(-1)[(rows * mw + cols).long()]
-        h_bound = torch.amax(hs.reshape(hs.shape[0], -1), dim=-1) + 2e-4
-    if h_bound is not None:
-        r_bound = C.MOON_RADIUS * torch.clamp(h_bound, max=1.0)[:, None]
-        # clip the chord to the segment inside the local-max sphere
-        b = torch.sum(ob * db, dim=-1)
-        cc = torch.sum(ob * ob) - r_bound * r_bound
-        disc = b * b - cc
-        crosses = disc > 0.0
-        s = torch.sqrt(torch.clamp(disc, min=0.0))
-        t_enter = torch.maximum(t_enter, torch.where(crosses, -b - s,
-                                                     t_enter))
-        t_end = torch.minimum(t_end, torch.where(crosses, -b + s, t_end))
-        hit_out = hit_out & crosses & (t_end > t_enter)
-
-    # inactive rays collapse to the block's mean chord so windows stay tight
-    t_enter_m = torch.where(hit_out, t_enter, torch.nan)
-    mean_enter = torch.nan_to_num(
-        torch.nanmean(t_enter_m, dim=1, keepdim=True), nan=0.0)
-    t_enter = torch.where(hit_out, t_enter, mean_enter)
-    t_end = torch.where(hit_out, t_end, mean_enter)
-    return RayGeom(db=db, ob=ob, t_enter=t_enter, t_end=t_end,
-                   hit_outer=hit_out, dirs_scene=dirs_scene,
-                   h_bound=h_bound)
+    return ray_setup.block_rays(basis, rotation, jitter, height, width,
+                                h_min, maxmap=maxmap, h_bound=h_bound,
+                                row_offset=row_offset,
+                                full_height=full_height,
+                                image_dirs=image_dirs)
 
 
 def _chord_points(geom: RayGeom):

@@ -26,6 +26,7 @@ import torch
 
 from moonrtx_tpu_torch import constants as C
 from moonrtx_tpu_torch import kernels
+from moonrtx_tpu_torch.ops.ray_setup import block_rays_plain
 from moonrtx_tpu_torch.utils import profiling
 
 G = 8                # blocks per strip (engine.blocked.GROUP)
@@ -516,16 +517,13 @@ def march_burst_plain(params, basis, rotation, jitters, h_bound, r, g, b,
                       n_coarse: int = 12, n_bisect: int = 3,
                       use_shadow: bool = True, use_earth: bool = True):
     """Plain version of march_burst: per warm sample the jittered rays
-    (engine.blocked.block_rays in block layout), march_shade_plain warm
-    from the previous sample's hits, and the running mean."""
-    # engine.blocked imports this module
-    from moonrtx_tpu_torch.engine.blocked import block_rays
-
+    (ops.ray_setup.block_rays_plain in block layout), march_shade_plain
+    warm from the previous sample's hits, and the running mean."""
     ns = t_prev.shape[0]
     ar, ag, ab, tp, fpv = r, g, b, t_prev, f_prev
     for i in range(1, n_samples):
-        geom = block_rays(basis, rotation, jitters[i], height, width, h_min,
-                          h_bound=h_bound, image_dirs=False)
+        geom = block_rays_plain(basis, rotation, jitters[i], height, width,
+                                h_min, h_bound=h_bound, image_dirs=False)
         dbx, dby, dbz = (geom.db[..., k].reshape(ns, G, B) for k in range(3))
         r_i, g_i, b_i, hitf, t_hit, *_ = march_shade_plain(
             params, dbx, dby, dbz, geom.t_enter.reshape(ns, G, B),

@@ -163,3 +163,31 @@ def test_march_burst_refuses_what_it_cannot_run(burst_args):
     with pytest.raises(ValueError, match="strips"):
         mk.march_burst(jitters=torch.zeros((4, 2)), n_samples=3,
                        **dict(common, width=a["width"] // 2))
+
+
+def test_burst_plain_builds_its_rays_without_the_wrapper(burst_args,
+                                                         monkeypatch):
+    """Off the card the burst's plain version runs, and it builds every
+    warm sample's rays with block_rays_plain, never through the kernel's
+    wrapper: the wrapper runs once, for sample 0, in _burst_core."""
+    from moonrtx_tpu_torch.ops import ray_setup
+
+    wrapped, plain = [], []
+    real_wrapper, real_plain = ray_setup.block_rays, ray_setup.block_rays_plain
+
+    def spy_wrapper(*a, **k):
+        wrapped.append(1)
+        return real_wrapper(*a, **k)
+
+    def spy_plain(*a, **k):
+        plain.append(k.get("image_dirs", True))
+        return real_plain(*a, **k)
+
+    monkeypatch.setattr(ray_setup, "block_rays", spy_wrapper)
+    monkeypatch.setattr(ray_setup, "block_rays_plain", spy_plain)
+    monkeypatch.setattr(mk, "block_rays_plain", spy_plain)
+    rgb, _ = blocked._burst_core(n_samples=5, **burst_args)
+    assert wrapped == [1]
+    assert plain == [True] + [False] * 4
+    rgb_l, _ = loop_burst(n_samples=5, **burst_args)
+    assert torch.equal(rgb, rgb_l)

@@ -22,9 +22,12 @@ bounce kernels are within 1e-5 of their plain version except where the
 plain version's own ties flip (BOUNCE_TOL); the blocked backend's sample
 kernel gives its plain version's image and hit buffer bit for bit, on a
 small view in every input variant it takes and on chip_smoke.py's 1080p
-view.
+view; the ray-setup kernel gives its plain version's rays bit for bit on
+every field, at 1080p and on a strip, and frames through it equal those
+through the plain ray setup.
 """
 
+import math
 from datetime import datetime, timezone
 
 import numpy as np
@@ -357,8 +360,10 @@ def test_scene_renders_through_the_kernels(cuda):
     ks = counts.pop("blocked_sample")
     assert k5 == 0 and ks == 0 and all(v > 0 for v in counts.values()), \
         counts
-    # sample 0 through K2, samples 1-3 in one burst kernel
+    # sample 0 through K2, samples 1-3 in one burst kernel, after one ray
+    # setup
     assert counts["march_shade"] == 1 and counts["march_burst"] == 1
+    assert counts["block_rays"] == 1
     assert img.shape == (144, 256, 3) and img.max() > 0
     assert torch.isfinite(s._accum).all()
 
@@ -374,8 +379,8 @@ def test_scene_renders_through_the_kernels(cuda):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     assert counts["extract_level_windows"] == 3, counts
-    # one launch a sample
-    assert counts["blocked_sample"] == 4, counts
+    # one launch a sample, after its ray setup
+    assert counts["blocked_sample"] == 4 and counts["block_rays"] == 4, counts
     assert counts["march_shade"] == 0 and counts["extract_group_windows"] == 0
     assert counts["march_burst"] == 0
     assert torch.isfinite(sb._accum).all()
@@ -471,8 +476,8 @@ def burst_1080p(synth_cache):
     _, calls = _smoke_scene(synth_cache, "pallas",
                             lambda s: _recorded(s, 32))
     bursts = [c for name, c in calls if name == "march_burst"]
-    # K1 x3, K4 x2, K3, the bounce pyramid, K2
-    assert len(bursts) == 1 and len(calls) == 9
+    # K1 x3, K4 x2, K3, the bounce pyramid, the ray setup, K2
+    assert len(bursts) == 1 and len(calls) == 10
     return bursts[0]
 
 
@@ -784,7 +789,8 @@ def test_mesh_scene_on_card_matches_single_device(cuda):
     assert kernels.launch_counts() == {
         "extract_group_windows": 12, "extract_level_windows": 0,
         "resample_group_windows": 8, "shadow_factor": 4, "march_shade": 16,
-        "march_burst": 0, "bounce_from_parts": 1, "blocked_sample": 0}
+        "march_burst": 0, "bounce_from_parts": 1, "blocked_sample": 0,
+        "block_rays": 16}
     from moonrtx_tpu_torch.data.synth import synthesize_moon
 
     elev, albedo = synthesize_moon(512, 1024, seed=7, n_craters=120)
@@ -817,12 +823,19 @@ def test_mesh_kernel_shapes_match_plain(cuda, monkeypatch, where):
                  ("resample_group_windows", by["resample_group_windows"][2]),
                  ("resample_group_windows", by["resample_group_windows"][3])]
     elif where == "strip":
+        # strip 1's rays: sample 0's, then sample 1's
         picks = [("march_shade", by["march_shade"][2]),
-                 ("march_shade", by["march_shade"][3])]
+                 ("march_shade", by["march_shade"][3]),
+                 ("block_rays", by["block_rays"][2]),
+                 ("block_rays", by["block_rays"][3])]
+        assert picks[2][1]["row_offset"] == 40
     else:
+        # device 1's whole-frame rays in block layout
         picks = [("extract_group_windows", by["extract_group_windows"][2]),
-                 ("extract_group_windows", by["extract_group_windows"][3])]
+                 ("extract_group_windows", by["extract_group_windows"][3]),
+                 ("block_rays", by["block_rays"][1])]
         assert picks[0][1]["r0"].shape[0] == (160 // 8) * (256 // 16)
+        assert not picks[2][1]["image_dirs"]
     declared = kernels.registered()
     for name, call in picks:
         got = declared[name].wrapper(**call)
@@ -832,6 +845,8 @@ def test_mesh_kernel_shapes_match_plain(cuda, monkeypatch, where):
             assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
         elif name == "shadow_factor":
             assert (got - ref).abs().max().item() <= 1e-4
+        elif name == "block_rays":
+            _assert_rays_equal(got, ref)
         elif name == "resample_group_windows":
             win = extract.decode_affine(extract._cut_windows(
                 call["levels"], call["lvl_idx"], call["r0"], call["c0"],
@@ -1035,3 +1050,240 @@ def test_blocked_sample_refuses_what_the_kernel_does_not_take(blocked_small):
         bs.blocked_sample(**dict(call, fp=call["fp"]._replace(
             rotation=call["fp"].rotation.cpu())))
     assert kernels.launch_counts()["blocked_sample"] == n0
+
+
+# ---- the ray setup in one launch (KR) -------------------------------------
+# The kernel against block_rays_plain on the card, bit for bit on every
+# RayGeom field (it follows torch's float32 arithmetic there:
+# csrc/ray_setup.cu), on 1080p views of a small map's scene and on a strip
+# of five block rows; then the scenes' frames with the kernel against the
+# same scenes with the plain ray setup.
+
+def _assert_rays_equal(got, ref):
+    for name, t in ref._asdict().items():
+        g = getattr(got, name)
+        assert (g is None) == (t is None), name
+        if t is None:
+            continue
+        assert g.shape == t.shape and g.dtype == t.dtype, name
+        assert g.is_contiguous(), name
+        if t.dtype == torch.bool:
+            assert torch.equal(g, t), name
+        else:
+            d = float((g - t).abs().max()) if t.numel() else 0.0
+            assert torch.equal(_bits(g), _bits(t)), (name, d)
+
+
+def _basis_toward(basis, target, tan_half_fov):
+    """A camera at basis.eye looking at ``target`` (scene frame) with the
+    given vertical half field of view."""
+    from moonrtx_tpu_torch.engine.camera import CameraBasis
+
+    eye = basis.eye
+    fwd = target - eye
+    fwd = fwd / torch.linalg.norm(fwd)
+    right = torch.linalg.cross(fwd, basis.up)
+    right = right / torch.linalg.norm(right)
+    up = torch.linalg.cross(right, fwd)
+    return CameraBasis(eye=eye, forward=fwd.contiguous(),
+                       right=right.contiguous(), up=up.contiguous(),
+                       tan_half_fov=torch.tensor(tan_half_fov,
+                                                 dtype=torch.float32,
+                                                 device=eye.device))
+
+
+@pytest.fixture(scope="module")
+def rays_1080p():
+    """A 1920x1080 scene on a 360x720 map, on the card, and its views: as
+    rendered; zoomed onto the limb (blocks with every ray live, some, and
+    none); turned 10 degrees off the Moon (no live ray)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kernels.build_all()
+    from moonrtx_tpu_torch.config import RenderConfig
+    from moonrtx_tpu_torch.data.synth import synthesize_moon
+    from moonrtx_tpu_torch.engine.scene import MoonScene
+    from moonrtx_tpu_torch.types import Observer
+
+    elev, albedo = synthesize_moon(360, 720, seed=5, n_craters=150)
+    rs = float(elev.max())
+    cfg = RenderConfig(
+        observer=Observer(50.06, 19.94, 219),
+        dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
+        width=1920, height=1080, shadow_accuracy=4).validate()
+    s = MoonScene(cfg, (elev / rs).astype(np.float32), rs, albedo, None)
+    s.update_view()
+    b = s.render_basis()
+    eye = b.eye
+    dist = float(torch.linalg.norm(eye))
+    # the limb point seen from the eye, in the plane of forward and up
+    toward = -eye / dist
+    side = torch.linalg.cross(toward, b.right)
+    side = side / torch.linalg.norm(side)
+    ang = math.asin(C.MOON_RADIUS / dist)
+    limb = eye + dist * (math.cos(ang) * toward + math.sin(ang) * side)
+    off = eye + dist * (math.cos(0.17) * toward + math.sin(0.17) * side)
+    views = {"as_rendered": b,
+             "limb": _basis_toward(b, limb, math.tan(math.radians(0.15))),
+             "off_frame": _basis_toward(b, off, float(b.tan_half_fov))}
+    return s, views
+
+
+@pytest.mark.parametrize("image_dirs", [True, False], ids=["dirs", "blocks"])
+@pytest.mark.parametrize("bound", ["maxmap", "cached", "none"])
+@pytest.mark.parametrize("view", ["as_rendered", "limb", "off_frame",
+                                  "strip"])
+def test_ray_setup_matches_plain(rays_1080p, view, bound, image_dirs):
+    from moonrtx_tpu_torch.ops import ray_setup
+
+    s, views = rays_1080p
+    basis = views["as_rendered" if view == "strip" else view]
+    dims = dict(height=40, row_offset=520, full_height=1080) \
+        if view == "strip" else dict(height=1080)
+    call = dict(basis=basis, rotation=s._fp.rotation,
+                jitter=torch.tensor([0.37, -0.21], device="cuda"),
+                width=1920, h_min=s.h_min, image_dirs=image_dirs, **dims)
+    if bound == "maxmap":
+        call["maxmap"] = s.maxmap
+    elif bound == "cached":
+        call["h_bound"] = ray_setup.block_rays_plain(
+            **dict(call, maxmap=s.maxmap)).h_bound
+    n0 = kernels.launch_counts()["block_rays"]
+    got = ray_setup.block_rays(**call)
+    ref = ray_setup.block_rays_plain(**call)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["block_rays"] == n0 + 1
+    _assert_rays_equal(got, ref)
+    live = ref.hit_outer.sum(dim=1)
+    if view == "off_frame":
+        assert int(live.max()) == 0
+        assert float(ref.t_enter.abs().max()) == 0.0
+    elif view == "limb":
+        assert bool((live == 0).any()) and bool((live == 128).any())
+        assert bool(((live > 0) & (live < 128)).any())
+    else:
+        assert int(live.max()) == 128
+    if bound == "cached":
+        assert got.h_bound is call["h_bound"]
+
+
+def test_ray_setup_without_jitter_matches_plain(rays_1080p):
+    from moonrtx_tpu_torch.ops import ray_setup
+
+    s, views = rays_1080p
+    call = dict(basis=views["as_rendered"], rotation=s._fp.rotation,
+                jitter=None, height=1080, width=1920, h_min=s.h_min,
+                maxmap=s.maxmap)
+    got = ray_setup.block_rays(**call)
+    ref = ray_setup.block_rays_plain(**call)
+    torch.cuda.synchronize()
+    _assert_rays_equal(got, ref)
+
+
+def _count_ray_setups(monkeypatch):
+    """The number of block_rays calls, kept in the returned list."""
+    from moonrtx_tpu_torch.ops import ray_setup
+
+    calls, real = [], ray_setup.block_rays
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    spy.__name__ = real.__name__     # kernels.launch looks it up by name
+    monkeypatch.setattr(ray_setup, "block_rays", spy)
+    return calls
+
+
+def _plain_ray_setup(monkeypatch):
+    from moonrtx_tpu_torch.ops import ray_setup
+
+    monkeypatch.setattr(ray_setup, "block_rays", ray_setup.block_rays_plain)
+
+
+def _blocked_scene():
+    from moonrtx_tpu_torch.app.session import Session
+    from moonrtx_tpu_torch.config import RenderConfig
+    from moonrtx_tpu_torch.data.features import load_moon_features
+    from moonrtx_tpu_torch.data.synth import synthesize_moon
+    from moonrtx_tpu_torch.engine.scene import MoonScene
+    from moonrtx_tpu_torch.types import Observer
+
+    elev, albedo = synthesize_moon(360, 720, seed=5, n_craters=150)
+    rs = float(elev.max())
+    cfg = RenderConfig(
+        observer=Observer(50.06, 19.94, 219),
+        dt_local=datetime(2024, 4, 15, 21, 0, tzinfo=timezone.utc),
+        width=256, height=144, shadow_accuracy=4).validate()
+    sess = Session(MoonScene(cfg, (elev / rs).astype(np.float32), rs, albedo,
+                             None), load_moon_features(None))
+    assert sess.scene.backend == "blocked"
+    sess.frame(1)
+    return sess
+
+
+def _blocked_event(sess):
+    sess.handle_key("w")
+    sess.frame(1)
+    sess.orbit_drag(2.0, 0.0)
+    sess.frame(1)
+
+
+def _march_view(s):
+    from datetime import timedelta
+
+    s.update_view(s.dt_local + timedelta(days=3))
+    return s.render(32)
+
+
+@pytest.mark.parametrize("path", ["blocked_event", "march_view"])
+def test_ray_setup_launches_once_a_call(cuda, monkeypatch, path):
+    """launch.block_rays rises by one for every block_rays call on the
+    card: one a blocked-path sample, one a cold march-path view."""
+    calls = _count_ray_setups(monkeypatch)
+    if path == "blocked_event":
+        sess = _blocked_scene()
+        n0, c0 = kernels.launch_counts(), len(calls)
+        _blocked_event(sess)
+        samples = 2
+    else:
+        s = _session_scene()
+        n0, c0 = kernels.launch_counts(), len(calls)
+        _march_view(s)
+        samples = 1
+    torch.cuda.synchronize()
+    n1 = kernels.launch_counts()
+    launched = n1["block_rays"] - n0["block_rays"]
+    assert launched == len(calls) - c0 >= samples
+    if path == "blocked_event":
+        assert n1["blocked_sample"] - n0["blocked_sample"] == samples
+    else:
+        assert n1["march_burst"] - n0["march_burst"] == 1
+
+
+@pytest.mark.parametrize("path", ["blocked_event", "march_view"])
+def test_frames_equal_with_the_plain_ray_setup(cuda, monkeypatch, path):
+    """The same scene and requests with the plain ray setup in the
+    kernel's place give the same frame, accumulator and hit buffer bit
+    for bit."""
+    out = []
+    for plain in (False, True):
+        with monkeypatch.context() as mp:
+            if plain:
+                _plain_ray_setup(mp)
+            n0 = kernels.launch_counts()["block_rays"]
+            if path == "blocked_event":
+                sess = _blocked_scene()
+                _blocked_event(sess)
+                s = sess.scene
+                img = s.display()
+            else:
+                s = _session_scene()
+                img = _march_view(s)
+            torch.cuda.synchronize()
+            launched = kernels.launch_counts()["block_rays"] - n0
+            assert (launched == 0) == plain
+            out.append((img.copy(), s._accum.clone(), s._hitbuf.clone()))
+    (img_k, acc_k, hb_k), (img_p, acc_p, hb_p) = out
+    assert np.array_equal(img_k, img_p)
+    assert torch.equal(acc_k, acc_p) and torch.equal(hb_k, hb_p)

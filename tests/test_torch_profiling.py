@@ -124,10 +124,18 @@ def test_session_records_the_spans_nested(moon, features, backend):
     if backend == "pallas":
         assert n["scene.burst"] >= 1 and n["scene.prefetch"] >= 1
         assert n["scene.sample"] == 0
+        # a ray setup opens every pose and time-step program
+        assert n["scene.rays"] >= n["scene.pose"] >= 1
+        for outer in parent_names(ranges, "scene.rays"):
+            assert outer & {"scene.pose", "scene.timestep", "scene.burst"}
     else:
         # a flip hit renders no sample: the restored frame is shown
         assert n["scene.sample"] == len(SCRIPT) - 2
         assert n["scene.burst"] == 0
+        # one ray setup a sample, in the frame's own code
+        assert n["scene.rays"] == n["scene.sample"]
+        for outer in parent_names(ranges, "scene.rays"):
+            assert "session.frame" in outer and "scene.sample" not in outer
     for outer in parent_names(ranges, "scene.update_view"):
         assert "session.event" in outer
     for outer in parent_names(ranges, "scene.set_camera"):
